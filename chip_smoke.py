@@ -1,37 +1,53 @@
 #!/usr/bin/env python3
 """Smoke run of nbody_tpu_torch on one CUDA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--runner-steps 1024]
 
-Builds the CUDA force kernels from nbody_tpu_torch/csrc, holds each
-kernel against its plain PyTorch version at two 50k-body geometries and
-at the shapes of the main path, then drives the main path: the v5_bench
-preset (N = 1,000,000, force_tile 512, no_ss) through
-``Simulation(cfg).step``, one warm-up step and three timed steps, with a
-per-phase breakdown, live band counts, launch counts and an accuracy
-check against a direct sum.  Every failing check raises (non-zero exit).
-The line before the last is one JSON object per kernel
-({"kernels": [...]}, times in ms on this card), preceded by the card's
-name and power limit; the last line is
+Builds the CUDA kernels from nbody_tpu_torch/csrc (one nvcc per source,
+all started together), holds each force kernel against its plain PyTorch
+version at two 50k-body geometries and at the shapes of the main path,
+then drives the paths of the v5_bench preset (N = 1,000,000, force_tile
+512, no_ss) with the launch counts zeroed before each and read after it:
+  [main]   the per-step rebuild, ``Simulation(cfg).step``: one warm-up
+           and three timed steps, a profile, a per-phase breakdown, live
+           band counts and an accuracy check against a direct sum;
+  [runner] the adaptive band-reuse runner, ``Simulation.run_scan``, under
+           ``metrics.drift_protocol`` from the initial conditions (1024
+           steps in chunks of 32): energy drift (< 1% enforced, the 0.2%
+           criterion reported), steps/s, rebuilds, launches, the force
+           error after the run, and profiles of one 32-step chunk and of
+           one inner step;
+  [probe]  ``nbody_tpu_torch.tools.prof_mxu`` at its own shape, the panel
+           sweep kernel in its three variants, each held against its plain
+           version.
+Every failing check raises (non-zero exit).  The line before the last is
+one JSON object per kernel ({"kernels": [...]}, times in ms on this
+card), preceded by the card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when no CUDA device is present.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
 from nbody_tpu_torch.config import PRESETS
+from nbody_tpu_torch.models import simulation
 from nbody_tpu_torch.models.simulation import Simulation, sort_by_morton
 from nbody_tpu_torch.init import make_initial_state
 from nbody_tpu_torch.ops import bbox, forces, integrate
 from nbody_tpu_torch.ops.cells import build_source_cells
 from nbody_tpu_torch.ops.cuda import build, forces as kern
+from nbody_tpu_torch.ops.cuda import panel as panel_kern
+from nbody_tpu_torch.tools import prof_mxu
 from nbody_tpu_torch.utils import metrics
 
 # H100 SXM published peaks: FP32 outside the tensor cores and HBM
@@ -49,6 +65,18 @@ REPLACES = {
     "near_span": "nbody_tpu/ops/pallas/forces.py:408",
 }
 SOURCE = "nbody_tpu_torch/csrc/forces.cu"
+PANEL_SOURCE = "nbody_tpu_torch/csrc/panel.cu"
+PANEL_REPLACES = "tools/_prof_mxu.py:79"
+# FP32 operations per pair of each panel variant: 3 sub, d2 (3 mul, 2
+# add), + soft, rsqrt, inv^3 (2 mul), * m, then vpu: 3 mul + 3 add;
+# mxu/mxu_c: 1 add (sum w) + 3 mul + 3 add (sum w q)
+PANEL_OPS = {"vpu": 19, "mxu": 20, "mxu_c": 20}
+# max over targets of |kernel - plain| / (the variant's term scale,
+# prof_mxu.term_scale): float32 sums in two orders differ by a few ulps
+# of the sum of |terms|
+PANEL_BOUND = 1e-5
+DRIFT_LIMIT = 0.01         # enforced: a broken schedule drifts 6.6-13%
+DRIFT_CRITERION = 0.002    # the BASELINE.json criterion, reported
 DEVICE = torch.device("cuda")
 
 
@@ -205,39 +233,87 @@ def phase_breakdown(cfg, state):
     return ms_by, (ps, ms, cells, ss, bands, tables)
 
 
-def profile_step(sim, state, top=12):
-    """torch.profiler over one step: wall time, the device's busy share,
-    the device kernel count, and the ops with the most device time."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_spans(spans, top=6):
+    """One torch.profiler profile over the labelled callables of `spans`,
+    each run in its own record_function range and synchronized.  Per
+    span: wall time, device busy time and share and kernel count, read
+    from the trace's kernel events launched inside the span (all of them:
+    the ctypes-launched kernels have no aten op), and the kernels with
+    the most device time; then the profile's aten ops with the most host
+    time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    walls = {}
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.step(state)
+        # warm-up: a short first span has come back without its kernels
+        x = torch.zeros(1, device=DEVICE)
+        for _ in range(200):
+            x += 1
         sync()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    events = prof.key_averages()
-    device = [e for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in device)
-    kernels = sum(e.count for e in device)
-    log(f"[profile] one step: wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), "
-        f"{kernels} device kernels")
-    aten = [e for e in events if e.key.startswith("aten::")]
-    for label, attr in (("device", "device_time_total"),
-                        ("host (self)", "self_cpu_time_total")):
-        ops = sorted(aten, key=lambda e: getattr(e, attr), reverse=True)[:top]
-        log(f"[profile] aten ops by {label} time (ms, calls): " + ", ".join(
-            f"{e.key[6:]} {getattr(e, attr) / 1e3:.1f} ({e.count})"
-            for e in ops))
+        time.sleep(0.2)
+        for label, fn in spans.items():
+            t0 = time.perf_counter()
+            with record_function(label):
+                fn()
+                sync()
+            walls[label] = 1e3 * (time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    # a kernel belongs to the span whose host range holds its launch (the
+    # device clock's timestamps may be offset from the host's)
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
+                   if e.get("cat") == "cuda_runtime"
+                   and "correlation" in e.get("args", {})}
+    for label in spans:
+        rng = [e for e in events if e.get("cat") == "user_annotation"
+               and e.get("name") == label][0]
+        lo, hi = rng["ts"], rng["ts"] + rng["dur"]
+        mine = [e for e in kernels if lo <= launched_at.get(
+            e.get("args", {}).get("correlation"), e["ts"]) <= hi]
+        busy_ms = sum(e["dur"] for e in mine) / 1e3
+        by_name = {}
+        for e in mine:
+            name = e["name"].replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].split(" ")[-1][-40:]
+            by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3
+        heavy = sorted(by_name.items(), key=lambda kv: kv[1],
+                       reverse=True)[:top]
+        log(f"[profile: {label}] wall {walls[label]:.1f} ms, device busy "
+            f"{busy_ms:.1f} ms ({100 * busy_ms / walls[label]:.1f}%), "
+            f"{len(mine)} device kernels; by device time (ms): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in heavy))
+    aten = [e for e in prof.key_averages() if e.key.startswith("aten::")]
+    ops = sorted(aten, key=lambda e: e.self_cpu_time_total,
+                 reverse=True)[:top]
+    log(f"[profile] aten ops by host (self) time (ms, calls): " + ", ".join(
+        f"{e.key[6:]} {e.self_cpu_time_total / 1e3:.1f} ({e.count})"
+        for e in ops))
+
+
+def band_report(label, cfg, cells, ss, bands):
+    """Live band demand per tile and the overflow flags."""
+    t = bands.win_cnt.shape[0]
+    means = {k: float(getattr(bands, f"{k}_cnt").float().mean())
+             for k in ("ss", "sup", "mid", "cmid", "near", "win")}
+    log(f"[{label}] n_cells {int(cells.n_cells)} / {cfg.cell_capacity}, "
+        f"tiles {t}, n_ss live {int(ss.n_supers)}; mean per tile " +
+        ", ".join(f"{k} {v:.1f}" for k, v in means.items()))
+    flags = {k: bool(getattr(bands, f"{k}_overflow"))
+             for k in ("ss", "sup", "mid", "cmid", "near")}
+    flags.update(cells=bool(cells.overflow), g2=bool(cells.overflow_g2))
+    log(f"[{label}] overflow {flags}")
 
 
 def direct_check(prev, acc, cfg, n_targets=4096, seed=7):
-    """Median relative error of `acc` at n_targets random bodies against a
-    float64 direct sum over all sources (the bound of
-    tests/test_forces.py's grouped-vs-direct test: 2%)."""
+    """Median and maximum relative error of `acc` at n_targets random
+    bodies against a float64 direct sum over all sources (the bound of
+    tests/test_forces.py's grouped-vs-direct test: 2% on the median)."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     idx = torch.randperm(prev.n, generator=gen, device=DEVICE)[:n_targets]
     tgt = prev.pos[idx].double()
@@ -246,11 +322,145 @@ def direct_check(prev, acc, cfg, n_targets=4096, seed=7):
     for j in range(0, prev.n, 16384):
         ref += forces._panel_accel(tgt, src[j:j + 16384], m[j:j + 16384],
                                    cfg.g, forces.soft_term(cfg))
-    err = (acc[idx].double() - ref).norm(dim=1) / ref.norm(dim=1)
+    ref_norm = ref.norm(dim=1)
+    err = (acc[idx].double() - ref).norm(dim=1) / ref_norm
+    worst = int(err.argmax())
+    log(f"[direct check] worst body: |ref| {float(ref_norm[worst]):.3e} "
+        f"against a median |ref| of {float(ref_norm.median()):.3e}")
     return float(err.median()), float(err.max())
 
 
+def check_finite(label, state):
+    for name, x in zip(("pos", "vel", "acc"), (state.pos, state.vel,
+                                                state.acc)):
+        if not torch.isfinite(x).all():
+            raise RuntimeError(f"non-finite {name} after the {label} path")
+
+
+def runner_phase(cfg, steps, chunk=32):
+    """The adaptive runner under drift_protocol from the initial
+    conditions; returns its launch counts."""
+    sim = Simulation(cfg, device=DEVICE)
+    ic = sim.init_state()
+    sync()
+    kern.reset_launches()
+    res = metrics.drift_protocol(sim, ic, steps, chunk=chunk)
+    launches = dict(kern.LAUNCHES)
+    rebuilds = sim.n_rebuilds
+    taken, state = res["drift_steps"], res["state"]
+    log(f"[runner] v5_bench n={cfg.n}: {taken} steps in chunks of {chunk}, "
+        f"{res['seconds']:.1f} s; avg {res['avg_steps_per_sec']:.3f} "
+        f"steps/s, hot (last chunk) {res['hot_steps_per_sec']:.3f} steps/s")
+    log(f"[runner] rebuilds {rebuilds} ({taken / rebuilds:.2f} steps per "
+        f"rebuild), far+mid refreshes {launches['far_sweep']}; launches "
+        f"{launches}")
+    verdict = "pass" if res["drift"] < DRIFT_CRITERION else "FAIL"
+    log(f"[runner] energy drift {res['drift']:.6e} over {taken} steps "
+        f"(E0 {res['e0']:.9e}, E1 {res['e1']:.9e}); 0.2% criterion: "
+        f"{verdict} (not enforced); limit {DRIFT_LIMIT:.0%}")
+    if launches["near_span"] != taken:
+        raise RuntimeError(f"near launches {launches['near_span']} != "
+                           f"{taken} steps")
+    if not 1 <= launches["far_sweep"] <= taken:
+        raise RuntimeError(f"far launches {launches['far_sweep']} outside "
+                           f"[1, {taken}]")
+    if launches["table_sweep"] != launches["far_sweep"]:
+        raise RuntimeError("every far+mid refresh launches far and table")
+    check_finite("runner", state)
+    if not res["drift"] < DRIFT_LIMIT:
+        raise RuntimeError(f"energy drift {res['drift']} >= {DRIFT_LIMIT}")
+    # the force the runner computes at the evolved state: one more step
+    # (a rebuild and a fresh far+mid) against a float64 direct sum
+    nxt = sim.run_scan(state, 1)
+    med, worst = direct_check(state, nxt.acc, cfg)
+    log(f"[runner] acceleration after the run vs float64 direct sum at 4096 "
+        f"bodies: median rel err {med:.3e} (bound 2e-2), max {worst:.3e}")
+    if not med < 0.02:
+        raise RuntimeError(f"median force error {med} >= 2% after the run")
+    # where the outliers come from: the per-step rebuild (no skins) at the
+    # same state, and the demand and flags of the runner's first rebuild
+    # of a run_scan call (envelopes sized for K steps)
+    med1, worst1 = direct_check(state, sim.step(state).acc, cfg)
+    log(f"[runner] per-step rebuild at the evolved state: median rel err "
+        f"{med1:.3e}, max {worst1:.3e}")
+    ps, ms, cs, _ = sorted_inputs(cfg, state)
+    cells, ss, bands, _ = forces.build_bands(ps, ms, cs, cfg)
+    band_report("runner, evolved state, no skins", cfg, cells, ss, bands)
+    pos, vel, mass, acc, orig = simulation._pad_cycle_state(state,
+                                                           cfg.force_tile)
+    k_env = torch.tensor(cfg.rebuild_every, device=DEVICE)
+    _, (_, bands, _, _), (s_valid, k_next) = simulation._adaptive_rebuild_fn(
+        cfg)(pos, vel, mass, acc, orig, k_env)
+    band_report(f"runner, evolved state, {cfg.rebuild_every}-step skins", cfg,
+                cells, ss, bands)
+    log(f"[runner] that rebuild: s_valid {int(s_valid)}, k_next "
+        f"{int(k_next)}")
+    stepper = sim.make_stepper(nxt)
+    profile_spans({
+        "one inner step (with a far+mid refresh)": lambda: stepper.advance(1),
+        f"one run_scan chunk of {chunk} steps": lambda: sim.run_scan(nxt,
+                                                                     chunk),
+    })
+    return launches
+
+
+def probe_phase():
+    """nbody_tpu_torch.tools.prof_mxu at its own shape; each variant held
+    against its plain version.  Returns the kernel JSON rows."""
+    panel_kern.reset_launches()
+    res = prof_mxu.run(device=DEVICE, log=lambda m: log(f"[probe] {m}"))
+    launches = dict(panel_kern.LAUNCHES)
+    inputs = res["inputs"]
+    t, g = inputs[0].shape[0], inputs[1].shape[0]
+    n = t * prof_mxu.B
+    rows = []
+    for name in prof_mxu.VARIANTS:
+        key = f"panel_{name}"
+        if launches[key] == 0:
+            raise RuntimeError(f"the probe never launched {key}")
+
+        def plain(name=name):
+            return prof_mxu.sweep(prof_mxu.PANELS[name], *inputs)
+
+        p_out = plain()
+        scale = prof_mxu.term_scale(name, *inputs)
+        k_out = res["out"][name]
+        if not torch.isfinite(k_out).all():
+            raise RuntimeError(f"{key}: kernel output is not finite")
+        diff = k_out - p_out
+        rel = float((diff.norm(dim=-1) / scale).max())
+        abs_err = float(diff.abs().max())
+        p_ms = event_ms(plain, 1)
+        # operations: the pairs', plus mxu_c's centring (3 per staged
+        # source per panel, 6 per target for the mean and the shift)
+        ops = PANEL_OPS[name] * n * g + (3 * t * g + 6 * n
+                                         if name == "mxu_c" else 0)
+        nbytes = 12 * n + 16 * g + 12 * n
+        t_ops, t_mem = ops / PEAK_FP32, nbytes / PEAK_BYTES
+        bound = 1e3 * max(t_ops, t_mem)
+        bound_by = "operations" if t_ops >= t_mem else "bytes"
+        log(f"[probe] {key}: kernel {res['ms'][name]:.3f} ms, plain "
+            f"{p_ms:.3f} ms, bound {bound:.3f} ms ({bound_by}), err/term "
+            f"scale {rel:.3e} (bound {PANEL_BOUND:.0e}), max abs err "
+            f"{abs_err:.3e}")
+        if not rel <= PANEL_BOUND:
+            raise RuntimeError(f"{key}: error {rel} > {PANEL_BOUND}")
+        rows.append({
+            "name": key, "route": "cuda", "source": PANEL_SOURCE,
+            "replaces": PANEL_REPLACES, "launches": launches[key],
+            "max_abs_err": abs_err, "ms": res["ms"][name], "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "rel_err_term_scale": rel, "pairs": n * g,
+            "max_rel_diff_vs_vpu": res["diff"].get(name),
+        })
+    return rows
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Smoke run on one CUDA GPU.")
+    ap.add_argument("--runner-steps", type=int, default=1024,
+                    help="steps of the [runner] drift run (chunks of 32)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -263,9 +473,11 @@ def main() -> int:
         f"{torch.version.cuda} | {kind}")
 
     t0 = time.perf_counter()
-    lib_path = build.build(verbose=True)
-    build.load()
-    log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    paths = build.build_all(verbose=True)
+    for name in paths:
+        build.load(name)
+    log(f"[build] {', '.join(p.name for p in paths.values())} in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     base = PRESETS["v5_bench"]
     geo_err = {
@@ -291,16 +503,14 @@ def main() -> int:
         state = sim.step(state)
         sync()
         step_ms.append(1e3 * (time.perf_counter() - t0))
-    launches = dict(kern.LAUNCHES)
+    launches_step = dict(kern.LAUNCHES)
     log(f"[main] v5_bench n={cfg.n}: steps {['%.1f' % s for s in step_ms]} "
-        f"ms, median {sorted(step_ms)[1]:.1f} ms/step; launches {launches}")
-    for k, v in launches.items():
+        f"ms, median {sorted(step_ms)[1]:.1f} ms/step; launches "
+        f"{launches_step}")
+    for k, v in launches_step.items():
         if v == 0:
             raise RuntimeError(f"main path never launched {k}")
-    for name, x in zip(("pos", "vel", "acc"), (state.pos, state.vel,
-                                                state.acc)):
-        if not torch.isfinite(x).all():
-            raise RuntimeError(f"non-finite {name} after the main path")
+    check_finite("main", state)
     med, worst = direct_check(prev, state.acc, cfg)
     log(f"[main] acceleration vs float64 direct sum at 4096 bodies: median "
         f"rel err {med:.3e} (bound 2e-2), max {worst:.3e}")
@@ -308,20 +518,13 @@ def main() -> int:
         raise RuntimeError(f"median force error {med} >= 2%")
     log(f"[main] KE {float(metrics.kinetic_energy(state)):.6e}")
 
-    profile_step(sim, state)
+    profile_spans({"one main step": lambda: sim.step(state)})
     phases, (ps, ms, cells, ss, bands, tables) = phase_breakdown(cfg, state)
     log("[main] phases (ms): " + ", ".join(f"{k} {v:.1f}"
                                            for k, v in phases.items()))
-    t = bands.win_cnt.shape[0]
-    means = {k: float(getattr(bands, f"{k}_cnt").float().mean())
-             for k in ("ss", "sup", "mid", "cmid", "near", "win")}
-    log(f"[main] n_cells {int(cells.n_cells)} / {cfg.cell_capacity}, tiles "
-        f"{t}, n_ss live {int(ss.n_supers)}; mean per tile " + ", ".join(
-            f"{k} {v:.1f}" for k, v in means.items()))
-    flags = {k: bool(getattr(bands, f"{k}_overflow"))
-             for k in ("ss", "sup", "mid", "cmid", "near")}
-    flags.update(cells=bool(cells.overflow), g2=bool(cells.overflow_g2))
-    log(f"[main] overflow {flags}")
+    band_report("main", cfg, cells, ss, bands)
+
+    launches = runner_phase(cfg, args.runner_steps)
 
     calls = kernel_calls(cfg, ps, ms, ss, bands, tables)
     errs = compare(calls)
@@ -340,10 +543,13 @@ def main() -> int:
             "bound_ms": bnd[k][0], "bound_by": bnd[k][1], "library_ms": None,
             "rel_err_main": rel, "rel_err_t512": geo_err["t512"][k],
             "rel_err_t128": geo_err["t128"][k],
-            "launches_per_step": launches[k] / len(step_ms),
+            "launches_step": launches_step[k],
+            "launches_per_step": launches_step[k] / len(step_ms),
         })
         log(f"[kernels main] {k}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
             f"bound {bnd[k][0]:.3f} ms ({bnd[k][1]}), rel_err {rel:.3e}")
+
+    rows += probe_phase()
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,11 +1,12 @@
 """nbody_tpu_torch — the PyTorch/CUDA port of nbody_tpu.
 
-The per-step Barnes-Hut pipeline of nbody_tpu (Morton sort, adaptive
-octree cells, band classification, per-tile tables) in PyTorch, with the
-three Pallas force kernels rewritten as hand CUDA kernels for Hopper
-(csrc/forces.cu).  Module names mirror nbody_tpu's.  Runs on the GPU by
-default; the CPU runs the kernels' plain PyTorch versions.  Imports
-neither JAX nor nbody_tpu.
+The Barnes-Hut pipeline of nbody_tpu (Morton sort, adaptive octree
+cells, band classification, per-tile tables) and its adaptive band-reuse
+runner in PyTorch, with every Pallas kernel rewritten as a hand CUDA
+kernel for Hopper (csrc/forces.cu: the three force sweeps; csrc/panel.cu:
+the panel probe of tools/_prof_mxu.py).  Module names mirror nbody_tpu's.
+Runs on the GPU by default; the CPU runs the kernels' plain PyTorch
+versions.  Imports neither JAX nor nbody_tpu.
 """
 
 from nbody_tpu_torch.config import SimConfig, PRESETS

@@ -7,10 +7,10 @@ carries across with ``nbody_tpu_torch.convert.config_from_dict``.
 
 ``use_pallas`` keeps its name for that reason and means "hand kernels on":
 the three force sweeps run as the CUDA kernels of ``ops/cuda/forces.py``
-(``False`` asks for their plain PyTorch versions).  The fields of the
-multi-step runners (``rebuild_every``, ``hold_farmid``, the skin knobs) and
-of sharding and rendering are carried for parity; the port's single-step
-path reads none of them.
+(``False`` asks for their plain PyTorch versions).  The band-reuse
+runners read ``rebuild_every``, ``adaptive_rebuild``, ``hold_farmid`` and
+the skin and hold knobs; the fields of sharding and rendering are carried
+for parity and read by nothing in the port yet.
 """
 
 from __future__ import annotations

@@ -140,6 +140,20 @@ def _norm3(v: torch.Tensor) -> torch.Tensor:
                       + v[..., 2] * v[..., 2])
 
 
+def local_width(codes_s: torch.Tensor, box_size: torch.Tensor, b: int,
+                bits: int) -> torch.Tensor:
+    """Per-particle local cell width from the sorted int64 Morton keys:
+    box_size * 2^-depth of the smallest Morton cell holding the particle
+    and its neighbour b/8 positions away on either side (the child-cell
+    occupancy scale).  The adaptive runner caps skin margins with it."""
+    c = max(b // 8, 1)
+    left = torch.cat([codes_s[:1].expand(c), codes_s[:-c]])
+    right = torch.cat([codes_s[c:], codes_s[-1:].expand(c)])
+    d = torch.maximum(lcp_between(codes_s, left, bits),
+                      lcp_between(codes_s, right, bits)) // 3
+    return box_size * torch.exp2(-d.to(torch.float32))
+
+
 def target_subspheres(pos_s: torch.Tensor, b: int,
                       drift: torch.Tensor | None = None,
                       codes: torch.Tensor | None = None,
@@ -802,6 +816,29 @@ def apply_near(pos_s: torch.Tensor, src_pos: torch.Tensor,
         fn = kern.near_span
     return fn(pos_s, src_pos, src_mass, bands.win_first, bands.win_mask,
               bands.win_cnt, cfg)
+
+
+def refresh_farmid(pos_live: torch.Tensor, mass_s: torch.Tensor,
+                   codes_s: torch.Tensor, drift: torch.Tensor,
+                   box_lo: torch.Tensor, box_size: torch.Tensor,
+                   bands: CellBands, cfg: SimConfig,
+                   tgt_pos: torch.Tensor | None = None) -> torch.Tensor:
+    """Far+mid at a FROZEN cut with every source moment recomputed from
+    live positions: the frozen codes give the same segments, the frozen
+    classification is regathered into fresh tables, and the smooth
+    component is evaluated at `tgt_pos` (default: the live positions).
+    The skins that keep the frozen classification conservative cover the
+    members' drift from the frozen analytic cell geometry."""
+    cells_r = build_source_cells(
+        codes_s, pos_live, mass_s, cfg.force_tile, cfg.g, cfg.cell_capacity,
+        box_lo, box_size, drift_sorted=drift, g2_factor=cfg.g2_cap_factor,
+        bits=cfg.morton_bits,
+    )
+    supers_r = make_supers(cells_r)
+    ss_r = make_ss(supers_r, cfg)
+    tables_r = build_cell_tables(cells_r, supers_r, ss_r, bands)
+    return apply_farmid(pos_live if tgt_pos is None else tgt_pos, ss_r,
+                        tables_r, cfg)
 
 
 def apply_bands(pos_s, mass_s, supers: Supers, bands: CellBands,

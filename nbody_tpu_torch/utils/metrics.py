@@ -1,7 +1,11 @@
-"""Physics metrics: kinetic and potential energy, momentum, bounding box
-and the relative energy drift (the BASELINE.json physics criterion)."""
+"""Physics metrics: kinetic and potential energy, momentum, bounding box,
+the relative energy drift (the BASELINE.json physics criterion) and the
+kilostep drift protocol that measures it."""
 
 from __future__ import annotations
+
+import time
+from typing import Dict
 
 import torch
 
@@ -16,17 +20,24 @@ def kinetic_energy(state: ParticleState) -> torch.Tensor:
 
 
 def potential_energy(state: ParticleState, cfg: SimConfig,
-                     block: int = 1024) -> torch.Tensor:
+                     block: int = 256) -> torch.Tensor:
     """PE = -G sum_{i<j} m_i m_j / sqrt(|r_ij|^2 + soft), blocked O(N^2)
-    (the self pairs, 1/sqrt(soft) each, are subtracted afterwards)."""
-    pos, mass = state.pos, state.mass
+    on planar coordinates (the self pairs, 1/sqrt(soft) each, are
+    subtracted afterwards).  Each [block, N] float32 temporary is 1 GB at
+    N = 1M and the default block."""
+    mass = state.mass
     g, soft = cfg.g, soft_term(cfg)
-    total = pos.new_zeros(())
-    for i in range(0, pos.shape[0], block):
-        pb, mb = pos[i:i + block], mass[i:i + block]
-        d = pos[None, :, :] - pb[:, None, :]
-        inv = torch.rsqrt((d * d).sum(dim=-1) + soft)
-        total = total + (mb[:, None] * mass[None, :] * inv).sum()
+    px, py, pz = state.pos.t().contiguous()
+    total = mass.new_zeros(())
+    for i in range(0, mass.shape[0], block):
+        j = slice(i, i + block)
+        d = px[None, :] - px[j, None]
+        d2 = d * d
+        for q in (py, pz):
+            torch.sub(q[None, :], q[j, None], out=d)
+            d2.addcmul_(d, d)
+        inv = d2.add_(soft).rsqrt_()
+        total = total + ((inv * mass[None, :]).sum(dim=1) * mass[j]).sum()
     self_term = (mass * mass).sum() * soft ** -0.5
     return -0.5 * g * (total - self_term)
 
@@ -46,3 +57,54 @@ def total_energy(state: ParticleState, cfg: SimConfig) -> torch.Tensor:
 def energy_drift(e0: float, e1: float) -> float:
     """Relative drift |E1 - E0| / |E0|."""
     return abs(e1 - e0) / max(abs(e0), 1e-30)
+
+
+def _sync(state: ParticleState) -> None:
+    if state.device.type == "cuda":
+        torch.cuda.synchronize(state.device)
+
+
+def drift_protocol(sim, state: ParticleState, n_steps: int = 1024,
+                   chunk: int = 32, log=None) -> Dict:
+    """The kilostep physics measurement: E0 = KE + softened PE of the
+    state as given, then exactly ceil(n_steps/chunk)*chunk steps in
+    `chunk`-sized ``sim.run_scan`` calls, then E1.  Times the whole
+    evolution and its final chunk (host clock around synchronized work).
+
+    `log(steps_done, seconds, state)` runs after each chunk when given;
+    its time is excluded from the rates.
+
+    Returns {drift, drift_steps, e0, e1, avg_steps_per_sec,
+    hot_steps_per_sec, seconds, state}."""
+    reps = -(-n_steps // chunk)
+    total = reps * chunk
+    e0 = float(total_energy(state, sim.cfg))
+    _sync(state)
+    t_log = 0.0
+    t_all0 = time.perf_counter()
+    t_hot0 = t_all0
+    t_log_at_hot = 0.0
+    for i in range(reps):
+        if i == reps - 1:
+            _sync(state)
+            t_hot0 = time.perf_counter()
+            t_log_at_hot = t_log
+        state = sim.run_scan(state, chunk)
+        if log is not None:
+            _sync(state)
+            tl0 = time.perf_counter()
+            log(chunk * (i + 1), tl0 - t_all0 - t_log, state)
+            t_log += time.perf_counter() - tl0
+    _sync(state)
+    t_end = time.perf_counter()
+    e1 = float(total_energy(state, sim.cfg))
+    return {
+        "drift": energy_drift(e0, e1),
+        "drift_steps": total,
+        "e0": e0,
+        "e1": e1,
+        "avg_steps_per_sec": total / (t_end - t_all0 - t_log),
+        "hot_steps_per_sec": chunk / (t_end - t_hot0 - (t_log - t_log_at_hot)),
+        "seconds": t_end - t_all0 - t_log,
+        "state": state,
+    }

@@ -199,10 +199,17 @@ def test_metrics_match():
 
 
 def test_port_imports_neither_jax_nor_nbody_tpu():
+    """Every module of the package, walked (not listed), and
+    chip_smoke.py's imports."""
     code = (
-        "import sys, nbody_tpu_torch\n"
-        "import nbody_tpu_torch.ops.cuda.forces, nbody_tpu_torch.utils.metrics\n"
-        "import nbody_tpu_torch.convert\n"
+        "import importlib, pkgutil, sys, nbody_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    nbody_tpu_torch.__path__, 'nbody_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'nbody_tpu_torch.tools.prof_mxu' in names, names\n"
+        "assert 'nbody_tpu_torch.ops.cuda.panel' in names, names\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'nbody_tpu' or m.startswith('nbody_tpu.')]\n"
         "print(bad)\n"
