@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of nbody_tpu_torch on one CUDA GPU.
 
-    python3 chip_smoke.py [--runner-steps 1024]
+    python3 chip_smoke.py
 
 Builds the CUDA kernels from nbody_tpu_torch/csrc (one nvcc per source,
 all started together), holds each force kernel against its plain PyTorch
@@ -15,8 +15,11 @@ then drives the paths of the v5_bench preset (N = 1,000,000, force_tile
            ``metrics.drift_protocol`` from the initial conditions (1024
            steps in chunks of 32): energy drift (< 1% enforced, the 0.2%
            criterion reported), steps/s, rebuilds, launches, the force
-           error after the run, and profiles of one 32-step chunk and of
-           one inner step;
+           error after the run, each force kernel against its plain
+           version on the runner's own skinned bands at the evolved
+           state, the host syncs of a 32-step run and of inner steps
+           (at most one per rebuild, none in an inner step), and
+           profiles of one 32-step chunk and of one inner step;
   [probe]  ``nbody_tpu_torch.tools.prof_mxu`` at its own shape, the panel
            sweep kernel in its three variants, each held against its plain
            version.
@@ -29,13 +32,13 @@ Exits non-zero without a result when no CUDA device is present.
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import torch
 
@@ -43,7 +46,7 @@ from nbody_tpu_torch.config import PRESETS
 from nbody_tpu_torch.models import simulation
 from nbody_tpu_torch.models.simulation import Simulation, sort_by_morton
 from nbody_tpu_torch.init import make_initial_state
-from nbody_tpu_torch.ops import bbox, forces, integrate
+from nbody_tpu_torch.ops import bbox, forces, integrate, panel
 from nbody_tpu_torch.ops.cells import build_source_cells
 from nbody_tpu_torch.ops.cuda import build, forces as kern
 from nbody_tpu_torch.ops.cuda import panel as panel_kern
@@ -72,11 +75,12 @@ PANEL_REPLACES = "tools/_prof_mxu.py:79"
 # mxu/mxu_c: 1 add (sum w) + 3 mul + 3 add (sum w q)
 PANEL_OPS = {"vpu": 19, "mxu": 20, "mxu_c": 20}
 # max over targets of |kernel - plain| / (the variant's term scale,
-# prof_mxu.term_scale): float32 sums in two orders differ by a few ulps
+# panel.term_scale): float32 sums in two orders differ by a few ulps
 # of the sum of |terms|
 PANEL_BOUND = 1e-5
 DRIFT_LIMIT = 0.01         # enforced: a broken schedule drifts 6.6-13%
 DRIFT_CRITERION = 0.002    # the BASELINE.json criterion, reported
+RUNNER_STEPS = 1024
 DEVICE = torch.device("cuda")
 
 
@@ -330,6 +334,20 @@ def direct_check(prev, acc, cfg, n_targets=4096, seed=7):
     return float(err.median()), float(err.max())
 
 
+def count_syncs(fn):
+    """(fn(), the number of synchronizing CUDA operations PyTorch made
+    while it ran), read from CUDA sync debug mode's warnings."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+
 def check_finite(label, state):
     for name, x in zip(("pos", "vel", "acc"), (state.pos, state.vel,
                                                 state.acc)):
@@ -339,7 +357,9 @@ def check_finite(label, state):
 
 def runner_phase(cfg, steps, chunk=32):
     """The adaptive runner under drift_protocol from the initial
-    conditions; returns its launch counts."""
+    conditions; returns its launch counts and, per force kernel, its
+    (relative, absolute) error against the plain version on the runner's
+    skinned bands at the evolved state."""
     sim = Simulation(cfg, device=DEVICE)
     ic = sim.init_state()
     sync()
@@ -388,20 +408,65 @@ def runner_phase(cfg, steps, chunk=32):
     band_report("runner, evolved state, no skins", cfg, cells, ss, bands)
     pos, vel, mass, acc, orig = simulation._pad_cycle_state(state,
                                                            cfg.force_tile)
-    k_env = torch.tensor(cfg.rebuild_every, device=DEVICE)
-    _, (_, bands, _, _), (s_valid, k_next) = simulation._adaptive_rebuild_fn(
-        cfg)(pos, vel, mass, acc, orig, k_env)
+    k_env = torch.full((), cfg.rebuild_every, device=DEVICE)
+    (pos, _, mass, _, _, _), (cells, ss, bands, tables, _), (
+        s_valid, k_next) = simulation._adaptive_rebuild_fn(cfg)(
+            pos, vel, mass, acc, orig, k_env)
     band_report(f"runner, evolved state, {cfg.rebuild_every}-step skins", cfg,
                 cells, ss, bands)
     log(f"[runner] that rebuild: s_valid {int(s_valid)}, k_next "
         f"{int(k_next)}")
+    errs = compare(kernel_calls(cfg, pos, mass, ss, bands, tables))
+    for k, (rel, abs_err) in errs.items():
+        log(f"[kernels runner] {k}: rel_err {rel:.3e} (bound "
+            f"{BOUNDS[k]:.0e}), max abs err {abs_err:.3e}")
+        if not rel <= BOUNDS[k]:
+            raise RuntimeError(f"{k} on the runner's bands: error {rel} > "
+                               f"{BOUNDS[k]}")
+    check_syncs(sim, ic, nxt, chunk)
     stepper = sim.make_stepper(nxt)
     profile_spans({
         "one inner step (with a far+mid refresh)": lambda: stepper.advance(1),
         f"one run_scan chunk of {chunk} steps": lambda: sim.run_scan(nxt,
                                                                      chunk),
     })
-    return launches
+    return launches, errs
+
+
+def check_syncs(sim, ic, state, chunk):
+    """Host syncs: at most one per rebuild over a run_scan chunk from
+    `state`, none in an inner step with a far+mid refresh, and none in an
+    inner refresh_moments refresh (a non-span hold of 1 from the IC,
+    where the horizon is long)."""
+    _, n = count_syncs(lambda: torch.ones(1, device=DEVICE).item())
+    if n != 1:
+        raise RuntimeError(f"sync debug mode counted {n} syncs for one .item()")
+    rb0 = sim.n_rebuilds
+    _, n = count_syncs(lambda: sim.run_scan(state, chunk))
+    rebuilds = sim.n_rebuilds - rb0
+    log(f"[runner] host syncs over one {chunk}-step run_scan: {n} for "
+        f"{rebuilds} rebuilds")
+    if n > rebuilds:
+        raise RuntimeError(f"{n} host syncs for {rebuilds} rebuilds")
+    rm = sim.cfg.replace(refresh_moments=True, farmid_span_rebuilds=False,
+                         hold_farmid=1)
+    # (simulation, state, steps before the counted one): the first step
+    # after a rebuild refreshes far+mid; with a hold of 1 the second
+    # refreshes through refresh_farmid
+    checks = {
+        "inner step with a far+mid refresh": (sim, state, 0),
+        "inner refresh_moments refresh": (Simulation(rm, device=DEVICE), ic,
+                                          1),
+    }
+    for label, (s, st, before) in checks.items():
+        stepper = s.make_stepper(st)           # rebuilds
+        stepper.advance(before)
+        rb0 = stepper.n_rebuilds
+        _, n = count_syncs(lambda: stepper.advance(1))
+        log(f"[runner] host syncs in one {label}: {n}")
+        if n or stepper.n_rebuilds != rb0:
+            raise RuntimeError(f"{label}: {n} host syncs, "
+                               f"{stepper.n_rebuilds - rb0} rebuilds")
 
 
 def probe_phase():
@@ -412,18 +477,18 @@ def probe_phase():
     launches = dict(panel_kern.LAUNCHES)
     inputs = res["inputs"]
     t, g = inputs[0].shape[0], inputs[1].shape[0]
-    n = t * prof_mxu.B
+    n = t * panel.B
     rows = []
-    for name in prof_mxu.VARIANTS:
+    for name in panel.VARIANTS:
         key = f"panel_{name}"
         if launches[key] == 0:
             raise RuntimeError(f"the probe never launched {key}")
 
         def plain(name=name):
-            return prof_mxu.sweep(prof_mxu.PANELS[name], *inputs)
+            return panel.sweep(panel.PANELS[name], *inputs)
 
         p_out = plain()
-        scale = prof_mxu.term_scale(name, *inputs)
+        scale = panel.term_scale(name, *inputs)
         k_out = res["out"][name]
         if not torch.isfinite(k_out).all():
             raise RuntimeError(f"{key}: kernel output is not finite")
@@ -457,10 +522,6 @@ def probe_phase():
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description="Smoke run on one CUDA GPU.")
-    ap.add_argument("--runner-steps", type=int, default=1024,
-                    help="steps of the [runner] drift run (chunks of 32)")
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -524,7 +585,7 @@ def main() -> int:
                                            for k, v in phases.items()))
     band_report("main", cfg, cells, ss, bands)
 
-    launches = runner_phase(cfg, args.runner_steps)
+    launches, runner_err = runner_phase(cfg, RUNNER_STEPS)
 
     calls = kernel_calls(cfg, ps, ms, ss, bands, tables)
     errs = compare(calls)
@@ -541,7 +602,8 @@ def main() -> int:
             "replaces": REPLACES[k], "launches": launches[k],
             "max_abs_err": abs_err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bnd[k][0], "bound_by": bnd[k][1], "library_ms": None,
-            "rel_err_main": rel, "rel_err_t512": geo_err["t512"][k],
+            "rel_err_main": rel, "rel_err_runner": runner_err[k][0],
+            "rel_err_t512": geo_err["t512"][k],
             "rel_err_t128": geo_err["t128"][k],
             "launches_step": launches_step[k],
             "launches_per_step": launches_step[k] / len(step_ms),

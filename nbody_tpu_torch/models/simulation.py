@@ -173,7 +173,8 @@ def _adaptive_rebuild_fn(cfg: SimConfig):
     rebuild(pos, vel, mass, acc, orig, k_env, afm=None) returns
     (fields, built, (s_valid, k_next)) with fields = (pos, vel, mass,
     acc, orig, afm) in the new order (afm None when not given), built =
-    (supers, bands, tables, rctx) and the two device scalars:
+    (cells, supers, bands, tables, rctx), build_bands' four results and
+    what refresh_farmid needs, and the two device scalars:
       * s_valid: the validity horizon;
       * k_next: the next envelope horizon, ~2 s_valid (calm epochs grow
         back to K in a few rebuilds), halved instead when this build's
@@ -189,8 +190,8 @@ def _adaptive_rebuild_fn(cfg: SimConfig):
         v, a = _norms(vel), _norms(acc)
         drift = adaptive_drift(v, a, codes_s, size, cfg,
                                k=k_env.to(torch.float32))
-        _, supers, bands, tables = forces.build_bands(pos, mass, codes_s, cfg,
-                                                      drift=drift)
+        cells, supers, bands, tables = forces.build_bands(pos, mass, codes_s,
+                                                          cfg, drift=drift)
         s_valid = validity_horizon(v, a, drift, cfg)
         overflowed = (bands.ss_overflow | bands.sup_overflow
                       | bands.mid_overflow | bands.cmid_overflow
@@ -200,7 +201,7 @@ def _adaptive_rebuild_fn(cfg: SimConfig):
         # what refresh_farmid needs to recompute moments at this cut
         rctx = (codes_s, drift, box_lo, size)
         return ((pos, vel, mass, acc, orig, afm),
-                (supers, bands, tables, rctx), (s_valid, k_next))
+                (cells, supers, bands, tables, rctx), (s_valid, k_next))
 
     return rebuild
 
@@ -209,11 +210,13 @@ class _AdaptiveLoop:
     """The adaptive schedule as a host loop, one `step()` per step.
 
     A rebuild happens when the current structure's validity horizon is
-    used up; it reads s_valid once (one host sync per rebuild), and that
+    used up; it reads s_valid once (the one host sync of a rebuild: the
+    band build works at the static caps and reads nothing), and that
     integer sets the horizon and, with cfg.span_age_mult, the hold limit
     r_eff = clip(span_age_mult * s_valid, 1, R).  Every other decision is
     taken from host integers, so an inner step (far+mid refresh or not,
-    exact near, integrate) reads nothing back from the device.
+    with or without refresh_moments, exact near, integrate) reads nothing
+    back from the device.
 
     The held far+mid is refreshed on the first step after a rebuild and
     every R steps; with cfg.farmid_span_rebuilds it is permuted along
@@ -231,7 +234,8 @@ class _AdaptiveLoop:
         self.mass0 = state.mass
         (self.pos, self.vel, self.mass, self.acc,
          self.orig) = _pad_cycle_state(state, cfg.force_tile)
-        self.k_env = torch.tensor(cfg.rebuild_every, device=state.device)
+        # a fill, not a copy from the host (which would synchronize)
+        self.k_env = torch.full((), cfg.rebuild_every, device=state.device)
         self.afm = torch.zeros_like(self.pos)
         # span: the age starts at R, so the very first step refreshes
         self.afm_age = self.r if self.span else 0
@@ -258,7 +262,7 @@ class _AdaptiveLoop:
         cfg = self.cfg
         if self.left <= 0:
             self.rebuild()
-        supers, bands, tables, rctx = self.built
+        _, supers, bands, tables, rctx = self.built
         if self.span:
             refresh = self.afm_age >= self.r_eff
         else:

@@ -2,7 +2,7 @@
 tools/_prof_mxu.py:sweep.
 
 ``sweep(variant, pos3, gx, gy, gz, gm)`` takes the arguments of the plain
-``nbody_tpu_torch.tools.prof_mxu.sweep`` with the panel named by its
+``nbody_tpu_torch.ops.panel.sweep`` with the panel named by its
 variant ("vpu", "mxu" or "mxu_c").  On CPU tensors it returns the plain
 version; on CUDA tensors it validates the arguments, allocates the
 output, launches the kernel on the current stream and raises if the
@@ -15,7 +15,7 @@ import torch
 
 from nbody_tpu_torch.ops.cuda import build
 from nbody_tpu_torch.ops.cuda.launch import check, launched, on_cpu, stream
-from nbody_tpu_torch.tools import prof_mxu as _plain
+from nbody_tpu_torch.ops import panel as _plain
 
 LAUNCHES = {f"panel_{v}": 0 for v in _plain.VARIANTS}
 
@@ -27,7 +27,7 @@ def reset_launches() -> None:
 
 def sweep(variant: str, pos3: torch.Tensor, gx: torch.Tensor,
           gy: torch.Tensor, gz: torch.Tensor, gm: torch.Tensor) -> torch.Tensor:
-    """Kernel version of prof_mxu.sweep(prof_mxu.PANELS[variant], ...)."""
+    """Kernel version of panel.sweep(panel.PANELS[variant], ...)."""
     if variant not in _plain.VARIANTS:
         raise ValueError(f"unknown panel variant {variant!r}")
     if on_cpu(pos3, gx, gy, gz, gm):

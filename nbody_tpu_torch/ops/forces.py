@@ -12,13 +12,13 @@ tile's windows.  The sweeps run as the CUDA kernels of
 ``ops/cuda/forces.py`` when ``cfg.use_pallas`` is set and as the plain
 PyTorch versions here otherwise.
 
-Port notes: the classification is computed over each chunk's LIVE list
-widths (one host read of the chunk maximum) instead of the JAX package's
-while-loops over static caps; entries past the live width are the same
-``big`` keys either way, so every index list, count and flag is
-identical.  Row compaction uses ``torch.sort`` (stable where ties can
-occur), and the segmented OR of window mask words is a segmented integer
-sum (the pieces merged into one window cover disjoint lanes).
+Port notes: the classification and the tables work over the static caps
+(every list at its cap width, entries past the live count being pad
+keys), so building them reads nothing back from the device; the band
+reuse runner's one host read per rebuild is its validity horizon.  Row
+compaction uses ``torch.sort`` (stable where ties can occur), and the
+segmented OR of window mask words is a segmented integer sum (the pieces
+merged into one window cover disjoint lanes).
 """
 
 from __future__ import annotations
@@ -370,17 +370,15 @@ def _window_masks(first: torch.Tensor, count: torch.Tensor, win_cap: int,
     WHOLLY: their pieces' masks are zeroed before the merge and the caller
     truncates their anti-rows (kept_children), so they keep their own
     child monopole.  This one routine stands for both JAX variants
-    (_window_masks and its dense oracle), computed over the live width."""
+    (_window_masks and its dense oracle)."""
     big = _BIG
     dev = first.device
     p = pieces
     r, k = first.shape
     out_cap = min(win_cap, p * k)
-    live_pos = torch.where(count > 0, torch.arange(k, device=dev) + 1, 0)
-    kl = max(int(live_pos.max()) if live_pos.numel() else 0, 1)
-    f, c = first[:, :kl].to(_I64), count[:, :kl].to(_I64)
-    key, ms = _pieces(f, c, p, big)                 # [R, P*kl], [R, P*kl, 4]
-    width = p * kl
+    f, c = first.to(_I64), count.to(_I64)
+    key, ms = _pieces(f, c, p, big)                   # [R, P*K], [R, P*K, 4]
+    width = p * k
     bnd = torch.cat([torch.ones_like(key[:, :1], dtype=torch.bool),
                      key[:, 1:] != key[:, :-1]], dim=1)
     rank = torch.cumsum(bnd.to(_I64), dim=1) - 1          # window rank
@@ -396,13 +394,8 @@ def _window_masks(first: torch.Tensor, count: torch.Tensor, win_cap: int,
     acc.index_add_(0, flat, words.reshape(-1, 4))
     seg_key = torch.full((r * width,), big, dtype=_I64, device=dev)
     seg_key.scatter_(0, flat, key.reshape(-1))            # equal per segment
-    seg_key = seg_key.reshape(r, width)
-    acc = acc.reshape(r, width, 4)
-    if width < out_cap:
-        seg_key = torch.cat([seg_key, seg_key.new_full((r, out_cap - width),
-                                                       big)], dim=1)
-        acc = torch.cat([acc, acc.new_zeros((r, out_cap - width, 4))], dim=1)
-    seg_key, acc = seg_key[:, :out_cap], acc[:, :out_cap]
+    seg_key = seg_key.reshape(r, width)[:, :out_cap]
+    acc = acc.reshape(r, width, 4)[:, :out_cap]
     live = seg_key < big
     win_first = torch.where(live, seg_key * SPAN_ALIGN, 0).to(_I32)
     acc = torch.where(live[..., None], acc, 0)
@@ -488,13 +481,11 @@ def cell_band_lists(tgt_subs: GroupInfo, ss: Supers, supers: Supers, cells,
             gap = torch.clamp(gap.amin(dim=-1), min=0.0)
             return torch.clamp(gap - (src_skin + half), min=0.0)
 
-        def live_width(cnt, cap):
-            return max(int(torch.clamp(cnt, max=cap).max()), 1)
-
-        def gated_mac(idx_list, cnt_raw, cap, pack, n_rows, id_cap):
+        def gated_mac(idx_list, pack, n_rows, id_cap):
             """Failing members (8 per listed parent) of each row's listed
-            parents, as keys (member id, big where passing)."""
-            ids = torch.clamp(idx_list[:, :live_width(cnt_raw, cap)], max=n_rows)
+            parents, as keys (member id, big where passing); pad parents
+            resolve to the zero row, whose members fail nothing."""
+            ids = torch.clamp(idx_list, max=n_rows)
             f = pack[ids].reshape(c_rows, -1, 6)
             kid = (ids[:, :, None] * 8 + arange8).reshape(c_rows, -1)
             sk = f[..., 4] + half
@@ -517,14 +508,13 @@ def cell_band_lists(tgt_subs: GroupInfo, ss: Supers, supers: Supers, cells,
                                           big, ss_cap)
         # stage 1: the failing super-supers' member supers
         sup_idx, sup_cnt = _row_compact_one(
-            gated_mac(ss_idx, ss_cnt, ss_cap, supf8, n_ss, 8 * n_ss), big, s_cap)
+            gated_mac(ss_idx, supf8, n_ss, 8 * n_ss), big, s_cap)
         # stage 2: the failing supers' cells
         mid_idx, mc_raw = _row_compact_one(
-            gated_mac(sup_idx, sup_cnt, s_cap, cellf6, n_sup, g_cap), big,
-            mid_cap)
+            gated_mac(sup_idx, cellf6, n_sup, g_cap), big, mid_cap)
 
         # stage 3: the failing cells' children
-        midc = torch.clamp(mid_idx[:, :live_width(mc_raw, mid_cap)], max=g_cap)
+        midc = torch.clamp(mid_idx, max=g_cap)
         kf = kidf[midc].reshape(c_rows, -1, 14)
         kid_id = (midc[:, :, None] * 8 + arange8).reshape(c_rows, -1)
         ksk = kf[..., 12] + half
@@ -668,19 +658,15 @@ def build_cell_tables(cells, supers: Supers, ss: Supers,
                + bands.cmid_cnt).to(_I64)
     near_cnt = bands.near_cnt.to(_I64)
 
-    r_tot = near_cap + 9 * k_items
-    planes = torch.zeros((4, t, r_tot), dtype=torch.float32, device=dev)
+    # every row at the caps' width: pad ids gather zero rows
+    planes = torch.empty((4, t, near_cap + 9 * k_items), dtype=torch.float32,
+                         device=dev)
     tc = 256
     for r0 in range(0, t, tc):
         r1 = min(r0 + tc, t)
-        li = int(n_items[r0:r1].max())
-        if li:
-            g = ext_all[items[r0:r1, :li]].reshape(r1 - r0, li * 9, 4)
-            planes[:, r0:r1, near_cap:near_cap + 9 * li] = g.permute(2, 0, 1)
-        ln = int(near_cnt[r0:r1].max())
-        if ln:
-            a4 = antiN[ni_safe[r0:r1, :ln]]               # [C, ln, 4]
-            planes[:, r0:r1, :ln] = a4.permute(2, 0, 1)
+        g = ext_all[items[r0:r1]].reshape(r1 - r0, 9 * k_items, 4)
+        planes[:, r0:r1, near_cap:] = g.permute(2, 0, 1)
+        planes[:, r0:r1, :near_cap] = antiN[ni_safe[r0:r1]].permute(2, 0, 1)
     row_cnt = near_cap + 9 * n_items
     return TableSet(tx=planes[0], ty=planes[1], tz=planes[2], tm=planes[3],
                     row_cnt=row_cnt.to(_I32), near_cnt=near_cnt.to(_I32))

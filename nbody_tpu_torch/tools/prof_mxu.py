@@ -2,23 +2,16 @@
 tools/_prof_mxu.py).
 
     python -m nbody_tpu_torch.tools.prof_mxu [--targets N] [--sources G]
-                                             [--iters K] [--device cuda]
+                                             [--device cuda]
 
-A panel is B = 256 targets against a chunk of LC = 1024 planar sources
-(x, y, z, m) under the v5 force law with softening SOFT = 50:
-  * vpu:   a = sum_j w_j d_j with d = q - p, w = m / (|d|^2 + SOFT)^{3/2};
-  * mxu:   S = sum_j w_j [1, q_j], a = S[1:4] - p S[0] (the identity that
-           lets a matrix unit form S, at the price of float32 cancellation
-           at the coordinates' scale);
-  * mxu_c: mxu with targets and sources centred on the panel's mean
-           target, so the cancellation happens at the distance scale.
-`sweep` adds the panels of every chunk, in chunk order, per 256-target
-tile.  The functions here are the plain versions; the CUDA kernel is
-csrc/panel.cu through ops/cuda/panel.py.  `run` (the entry point's body)
-makes the inputs from a seed, runs the three kernel variants, times each
-with CUDA events and reports the vpu-vs-mxu and vpu-vs-mxu_c
-differences, as the JAX tool does.  The default shape is the JAX tool's:
-2^20 targets as [4096, 256, 3] and 8192 sources (8.6e9 pairs).
+The panels (vpu, mxu, mxu_c) and their plain sweep are in
+``nbody_tpu_torch.ops.panel``; the CUDA kernel is csrc/panel.cu through
+ops/cuda/panel.py.  `run` (the entry point's body) makes the inputs from
+a fixed seed, runs the three kernel variants, times each with CUDA events
+(two warm-up and ITERS timed launches) and reports the vpu-vs-mxu and
+vpu-vs-mxu_c differences, as the JAX tool does.  The default shape is the
+JAX tool's: 2^20 targets as [4096, 256, 3] and 8192 sources (8.6e9
+pairs).
 """
 
 from __future__ import annotations
@@ -28,106 +21,19 @@ import sys
 
 import torch
 
-B = 256
-LC = 1024
-SOFT = 50.0
-VARIANTS = ("vpu", "mxu", "mxu_c")
+from nbody_tpu_torch.ops.cuda import panel as kern
+from nbody_tpu_torch.ops.panel import B, LC, VARIANTS
+
+ITERS = 8
 
 
-def _weights(dx, dy, dz, qm):
-    d2 = dx * dx + dy * dy + dz * dz
-    inv = torch.rsqrt(d2 + SOFT)
-    return qm * (inv * inv * inv)
-
-
-def panel_vpu(p, qx, qy, qz, qm):
-    """p [..., B, 3] targets against sources q* [LC] -> [..., B, 3]."""
-    dx = qx - p[..., 0:1]
-    dy = qy - p[..., 1:2]
-    dz = qz - p[..., 2:3]
-    w = _weights(dx, dy, dz, qm)
-    return torch.stack([(w * dx).sum(-1), (w * dy).sum(-1),
-                        (w * dz).sum(-1)], dim=-1)
-
-
-def panel_mxu(p, qx, qy, qz, qm):
-    dx = qx - p[..., 0:1]
-    dy = qy - p[..., 1:2]
-    dz = qz - p[..., 2:3]
-    w = _weights(dx, dy, dz, qm)
-    s = torch.stack([w.sum(-1), (w * qx).sum(-1), (w * qy).sum(-1),
-                     (w * qz).sum(-1)], dim=-1)
-    return s[..., 1:4] - p * s[..., 0:1]
-
-
-def _centred(p, qx, qy, qz):
-    """Targets and sources relative to the panel's mean target."""
-    c = p.mean(dim=-2, keepdim=True)                     # [..., 1, 3]
-    return (p - c, qx - c[..., 0:1], qy - c[..., 1:2], qz - c[..., 2:3])
-
-
-def panel_mxu_c(p, qx, qy, qz, qm):
-    pc, qxc, qyc, qzc = _centred(p, qx, qy, qz)
-    return panel_mxu(pc, qxc, qyc, qzc, qm)
-
-
-PANELS = {"vpu": panel_vpu, "mxu": panel_mxu, "mxu_c": panel_mxu_c}
-
-
-def _chunked(fn, pos3, gx, gy, gz, gm, tile_chunk):
-    """fn(p, qx, qy, qz, qm) summed over the LC-source chunks in order,
-    for blocks of `tile_chunk` tiles."""
-    out = []
-    for i in range(0, pos3.shape[0], tile_chunk):
-        p = pos3[i:i + tile_chunk]
-        acc = None
-        for c in range(0, gx.shape[0], LC):
-            part = fn(p, gx[c:c + LC], gy[c:c + LC], gz[c:c + LC],
-                      gm[c:c + LC])
-            acc = part if acc is None else acc + part
-        out.append(acc)
-    return torch.cat(out)
-
-
-def sweep(panel, pos3, gx, gy, gz, gm, tile_chunk: int = 64):
-    """Plain sweep: pos3 [t, B, 3], sources g* [g] (g a multiple of LC)
-    -> [t, B, 3]."""
-    if gx.shape[0] % LC:
-        raise ValueError(f"{gx.shape[0]} sources are not a multiple of {LC}")
-    return _chunked(panel, pos3, gx, gy, gz, gm, tile_chunk)
-
-
-def term_scale(variant: str, pos3, gx, gy, gz, gm, tile_chunk: int = 64):
-    """Per target, the magnitude of the terms its sweep adds up, [t, B]:
-    sum |w| |d| for vpu, sum |w| (|q| + |p|) for mxu and (centred) mxu_c.
-    A sum of float32 terms is off by a few ulps of this, whatever the
-    order, so errors are normalised by it."""
-
-    def norm(x, y, z):
-        return torch.sqrt(x * x + y * y + z * z)
-
-    def scale(p, qx, qy, qz, qm):
-        if variant == "mxu_c":
-            p, qx, qy, qz = _centred(p, qx, qy, qz)
-        dx = qx - p[..., 0:1]
-        dy = qy - p[..., 1:2]
-        dz = qz - p[..., 2:3]
-        w = _weights(dx, dy, dz, qm).abs()
-        if variant == "vpu":
-            return (w * norm(dx, dy, dz)).sum(-1)
-        return (w * norm(qx, qy, qz)).sum(-1) + w.sum(-1) * norm(
-            p[..., 0], p[..., 1], p[..., 2])
-
-    return _chunked(scale, pos3, gx, gy, gz, gm, tile_chunk)
-
-
-def make_inputs(n_targets: int, n_sources: int, device, seed: int = 0):
+def make_inputs(n_targets: int, n_sources: int, device):
     """(pos3 [n_targets/B, B, 3], gx, gy, gz, gm): coordinates uniform in
-    [-1700, 1700), masses in [1, 7), from a torch.Generator seed."""
+    [-1700, 1700), masses in [1, 7), from a torch.Generator with seed 0."""
     if n_targets % B or n_sources % LC:
         raise ValueError(f"targets must be a multiple of {B} and sources "
                          f"of {LC}")
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(0)
 
     def uniform(shape, lo, hi):
         return lo + (hi - lo) * torch.rand(shape, generator=gen,
@@ -143,17 +49,15 @@ def max_rel_diff(ra: torch.Tensor, rb: torch.Tensor) -> float:
     return float(((ra - rb).norm(dim=-1) / (ra.norm(dim=-1) + 1e-6)).max())
 
 
-def run(n_targets: int = 1 << 20, n_sources: int = 8192, iters: int = 8,
-        device="cuda", seed: int = 0, log=print):
+def run(n_targets: int = 1 << 20, n_sources: int = 8192, device="cuda",
+        log=print):
     """Each variant through the kernel wrapper: one call for its output,
-    then (on CUDA) two warm-up launches and `iters` launches timed with
+    then (on CUDA) two warm-up launches and ITERS launches timed with
     CUDA events.  Returns {"inputs", "out": {variant: [t, B, 3]},
     "ms": {variant: mean ms, None on the CPU}, "diff": {"mxu", "mxu_c":
     max rel diff against vpu}}."""
-    from nbody_tpu_torch.ops.cuda import panel as kern
-
     device = torch.device(device)
-    inputs = make_inputs(n_targets, n_sources, device, seed)
+    inputs = make_inputs(n_targets, n_sources, device)
     pairs = n_targets * n_sources
     out, ms = {}, {}
     for name in VARIANTS:
@@ -165,11 +69,11 @@ def run(n_targets: int = 1 << 20, n_sources: int = 8192, iters: int = 8,
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
             start.record()
-            for _ in range(iters):
+            for _ in range(ITERS):
                 kern.sweep(name, *inputs)
             end.record()
             torch.cuda.synchronize(device)
-            ms[name] = start.elapsed_time(end) / iters
+            ms[name] = start.elapsed_time(end) / ITERS
             log(f"{name}: {ms[name]:.3f} ms -> "
                 f"{pairs / ms[name] * 1e3 / 1e9:.0f} G pairs/s")
     diff = {name: max_rel_diff(out["vpu"], out[name])
@@ -183,8 +87,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--targets", type=int, default=1 << 20)
     ap.add_argument("--sources", type=int, default=8192)
-    ap.add_argument("--iters", type=int, default=8)
-    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; times the kernels) or cpu (plain "
                          "versions, no timing)")
@@ -195,7 +97,7 @@ def main(argv=None) -> int:
                   "plain versions)", file=sys.stderr)
             return 1
         print(f"device: {torch.cuda.get_device_name(args.device)}")
-    run(args.targets, args.sources, args.iters, args.device, args.seed)
+    run(args.targets, args.sources, args.device)
     return 0
 
 

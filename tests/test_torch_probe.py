@@ -1,6 +1,6 @@
-"""nbody_tpu_torch.tools.prof_mxu against tools/_prof_mxu.py: the three
-plain panels against the JAX tool's panels, the plain sweep against the
-tool's Pallas sweep (interpret mode on the CPU), the kernel wrapper's CPU
+"""nbody_tpu_torch.ops.panel and tools.prof_mxu against
+tools/_prof_mxu.py: the three plain panels against the JAX tool's panels,
+the plain sweep against the tool's Pallas sweep (interpret mode on the CPU), the kernel wrapper's CPU
 dispatch and the entry point."""
 
 import functools
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from nbody_tpu_torch.ops.cuda import panel as kern
+from nbody_tpu_torch.ops import panel
 from nbody_tpu_torch.tools import prof_mxu
 
 torch.set_num_threads(2)
@@ -32,7 +33,7 @@ def jtool():
 
 def _inputs(t, g, seed):
     rng = np.random.default_rng(seed)
-    pos3 = rng.uniform(-1700, 1700, (t, prof_mxu.B, 3)).astype(np.float32)
+    pos3 = rng.uniform(-1700, 1700, (t, panel.B, 3)).astype(np.float32)
     gx, gy, gz = (rng.uniform(-1700, 1700, g).astype(np.float32)
                   for _ in range(3))
     gm = rng.uniform(1, 7, g).astype(np.float32)
@@ -41,42 +42,42 @@ def _inputs(t, g, seed):
 
 def _rel_to_scale(got, want, variant, inputs):
     """max over targets of |got - want| / the variant's term scale."""
-    scale = prof_mxu.term_scale(variant, *(torch.from_numpy(x)
+    scale = panel.term_scale(variant, *(torch.from_numpy(x)
                                            for x in inputs)).numpy()
     return float((np.linalg.norm(got - want, axis=-1) / scale).max())
 
 
 def test_constants_match(jtool):
-    assert (prof_mxu.B, prof_mxu.LC, prof_mxu.SOFT) == (jtool.B, jtool.LC,
+    assert (panel.B, panel.LC, panel.SOFT) == (jtool.B, jtool.LC,
                                                         jtool.SOFT)
 
 
-@pytest.mark.parametrize("variant", prof_mxu.VARIANTS)
+@pytest.mark.parametrize("variant", panel.VARIANTS)
 def test_plain_panels_match_jax_panels(jtool, variant):
-    pos3, gx, gy, gz, gm = _inputs(1, prof_mxu.LC, seed=1)
+    pos3, gx, gy, gz, gm = _inputs(1, panel.LC, seed=1)
     want = getattr(jtool, f"_panel_{variant}")(
         jnp.asarray(pos3[0]), *(jnp.asarray(q).reshape(1, -1)
                                 for q in (gx, gy, gz, gm)))
-    got = prof_mxu.PANELS[variant](
+    got = panel.PANELS[variant](
         torch.from_numpy(pos3[0]), *(torch.from_numpy(q)
                                      for q in (gx, gy, gz, gm)))
-    assert got.shape == (prof_mxu.B, 3)
+    assert got.shape == (panel.B, 3)
     rel = _rel_to_scale(got.numpy()[None], np.asarray(want)[None], variant,
                         (pos3, gx, gy, gz, gm))
     assert rel < 1e-6, rel
 
 
-@pytest.mark.parametrize("variant", prof_mxu.VARIANTS)
+@pytest.mark.parametrize("variant", panel.VARIANTS)
 def test_plain_sweep_matches_pallas_sweep(jtool, variant, monkeypatch):
     """The Pallas kernel in interpret mode at t = 2 tiles, g = 2048."""
     monkeypatch.setattr(jtool.pl, "pallas_call", functools.partial(
         jtool.pl.pallas_call, interpret=True))
-    inputs = _inputs(2, 2 * prof_mxu.LC, seed=2)
+    inputs = _inputs(2, 2 * panel.LC, seed=2)
     want = jtool.sweep(getattr(jtool, f"_panel_{variant}"),
                        *(jnp.asarray(x) for x in inputs))
-    got = prof_mxu.sweep(prof_mxu.PANELS[variant],
+    got = panel.sweep(panel.PANELS[variant],
                          *(torch.from_numpy(x) for x in inputs))
-    assert got.shape == (2, prof_mxu.B, 3)
+    assert got.shape == (2, panel.B, 3)
     assert _rel_to_scale(got.numpy(), np.asarray(want), variant,
                          inputs) < 1e-6
 
@@ -84,33 +85,33 @@ def test_plain_sweep_matches_pallas_sweep(jtool, variant, monkeypatch):
 def test_term_scale_bounds_every_sum():
     """|sum of terms| <= sum of |terms|: each variant's output (and, for
     the identity variants, each of its two sums) is within its scale."""
-    inputs = [torch.from_numpy(x) for x in _inputs(3, prof_mxu.LC, seed=3)]
-    for variant in prof_mxu.VARIANTS:
-        out = prof_mxu.sweep(prof_mxu.PANELS[variant], *inputs)
-        scale = prof_mxu.term_scale(variant, *inputs)
+    inputs = [torch.from_numpy(x) for x in _inputs(3, panel.LC, seed=3)]
+    for variant in panel.VARIANTS:
+        out = panel.sweep(panel.PANELS[variant], *inputs)
+        scale = panel.term_scale(variant, *inputs)
         assert scale.shape == out.shape[:2]
         assert bool((out.norm(dim=-1) <= scale * (1 + 1e-5)).all())
 
 
 def test_wrapper_on_cpu_takes_the_plain_sweep():
-    inputs = [torch.from_numpy(x) for x in _inputs(2, prof_mxu.LC, seed=4)]
+    inputs = [torch.from_numpy(x) for x in _inputs(2, panel.LC, seed=4)]
     before = dict(kern.LAUNCHES)
-    for variant in prof_mxu.VARIANTS:
+    for variant in panel.VARIANTS:
         got = kern.sweep(variant, *inputs)
-        want = prof_mxu.sweep(prof_mxu.PANELS[variant], *inputs)
+        want = panel.sweep(panel.PANELS[variant], *inputs)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert kern.LAUNCHES == before           # no kernel launched on the CPU
 
 
 def test_wrapper_rejects_bad_arguments():
-    inputs = [torch.from_numpy(x) for x in _inputs(1, prof_mxu.LC, seed=5)]
+    inputs = [torch.from_numpy(x) for x in _inputs(1, panel.LC, seed=5)]
     with pytest.raises(ValueError, match="variant"):
         kern.sweep("tf32", *inputs)
     meta = torch.empty(inputs[0].shape, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         kern.sweep("vpu", meta, *inputs[1:])
     with pytest.raises(ValueError, match="multiple"):
-        prof_mxu.sweep(prof_mxu.panel_vpu, inputs[0],
+        panel.sweep(panel.panel_vpu, inputs[0],
                        *(q[:100] for q in inputs[1:]))
 
 
@@ -123,7 +124,7 @@ def test_entry_point(monkeypatch, capsys):
     assert "max rel diff vpu-vs-mxu:" in out
     assert "max rel diff vpu-vs-mxu_c:" in out
     res = prof_mxu.run(512, 1024, device="cpu", log=lambda m: None)
-    assert res["ms"] == {v: None for v in prof_mxu.VARIANTS}
+    assert res["ms"] == {v: None for v in panel.VARIANTS}
     assert set(res["diff"]) == {"mxu", "mxu_c"}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert prof_mxu.main([]) == 1

@@ -202,7 +202,9 @@ def test_adaptive_rebuild_matches(rebuilt):
                                       np.asarray(want))
     np.testing.assert_array_equal(mass.numpy(), np.asarray(jmass))
     np.testing.assert_array_equal(orig.numpy(), np.asarray(jorig))
-    supers, bands, tables, rctx = r["tbuilt"]
+    cells, supers, bands, tables, rctx = r["tbuilt"]
+    assert int(supers.n_supers) == int(jsupers.n_supers)
+    assert (int(cells.n_cells) + 63) // 64 == int(supers.n_supers)
     np.testing.assert_array_equal(rctx[0].numpy(), _key(jrctx[0]).numpy())
     np.testing.assert_allclose(rctx[1].numpy(), np.asarray(jrctx[1]),
                                rtol=1e-6)
@@ -232,7 +234,7 @@ def test_refresh_farmid_matches(rebuilt):
     want = jax.jit(lambda p, m, rc, b, q: jforces.refresh_farmid(
         p, m, *rc, b, r["jc"], tgt_pos=q))(jnp.asarray(live), jmass, jrctx,
                                            jbands, jnp.asarray(tgt))
-    bands = r["tbuilt"][1]
+    bands = r["tbuilt"][2]
     rctx = (_key(jrctx[0]),) + tuple(_t(x) for x in jrctx[1:])
     got = tforces.refresh_farmid(torch.from_numpy(live), _t(jmass), *rctx,
                                  bands, r["tc"], tgt_pos=torch.from_numpy(tgt))
