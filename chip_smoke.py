@@ -2,12 +2,13 @@
 """Smoke run of nbody_tpu_torch on one CUDA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --rungs [STEPS]
 
-Builds the CUDA kernels from nbody_tpu_torch/csrc (one nvcc per source,
-all started together), holds each force kernel against its plain PyTorch
-version at two 50k-body geometries and at the shapes of the main path,
-then drives the paths of the v5_bench preset (N = 1,000,000, force_tile
-512, no_ss) with the launch counts zeroed before each and read after it:
+Builds the CUDA kernels from nbody_tpu_torch/csrc (one nvcc per source),
+holds each force kernel against its plain PyTorch version at two 50k-body
+geometries and at the shapes of the main path, then drives the paths of
+the v5_bench preset (N = 1,000,000, force_tile 512, no_ss) with the
+launch counts zeroed before each and read after it:
   [main]   the per-step rebuild, ``Simulation(cfg).step``: one warm-up
            and three timed steps, a profile, a per-phase breakdown, live
            band counts and an accuracy check against a direct sum;
@@ -17,7 +18,8 @@ then drives the paths of the v5_bench preset (N = 1,000,000, force_tile
            criterion reported), steps/s, rebuilds, launches, the force
            error after the run, each force kernel against its plain
            version on the runner's own skinned bands at the evolved
-           state, the host syncs of a 32-step run and of inner steps
+           state with its time and bound there, near_span's window-lane
+           and live pairs, the host syncs of a 32-step run and of inner steps
            (at most one per rebuild, none in an inner step), and
            profiles of one 32-step chunk and of one inner step;
   [probe]  ``nbody_tpu_torch.tools.prof_mxu`` at its own shape, the panel
@@ -28,6 +30,12 @@ one JSON object per kernel ({"kernels": [...]}, times in ms on this
 card), preceded by the card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when no CUDA device is present.
+
+With --rungs it instead rebuilds csrc/tile_sweeps.cu once per entry of
+RUNGS (the arithmetic rungs and block shapes tried for near_span and
+table_sweep) and prints each one's error against the plain versions at
+the four geometries and its time at the 1M IC and on the runner's skinned
+bands after STEPS runner steps (default 1024).
 """
 
 from __future__ import annotations
@@ -67,7 +75,11 @@ REPLACES = {
     "table_sweep": "nbody_tpu/ops/pallas/forces.py:214",
     "near_span": "nbody_tpu/ops/pallas/forces.py:408",
 }
-SOURCE = "nbody_tpu_torch/csrc/forces.cu"
+SOURCE = {
+    "far_sweep": "nbody_tpu_torch/csrc/forces.cu",
+    "table_sweep": "nbody_tpu_torch/csrc/tile_sweeps.cu",
+    "near_span": "nbody_tpu_torch/csrc/tile_sweeps.cu",
+}
 PANEL_SOURCE = "nbody_tpu_torch/csrc/panel.cu"
 PANEL_REPLACES = "tools/_prof_mxu.py:79"
 # FP32 operations per pair of each panel variant: 3 sub, d2 (3 mul, 2
@@ -161,13 +173,12 @@ def bounds_ms(cfg, ps, ss, bands, tables):
     live_rows = (bands.near_cnt.to(torch.int64)
                  + tables.row_cnt.to(torch.int64) - cfg.near_cap)
     rows = int(live_rows.sum())
-    wc = bands.win_cnt.to(torch.int64)
-    lane_ok = torch.arange(bands.win_first.shape[1], device=ps.device) < wc[:, None]
-    lanes = int((popcount32(bands.win_mask) * lane_ok[:, None, :]).sum())
+    lanes = live_lanes(bands)
+    windows = int(bands.win_cnt.sum())
     work = {
         "far_sweep": (n * n_live, 24 * n + 16 * n_live + 4),
         "table_sweep": (b * rows, 24 * n + 16 * rows + 8 * t),
-        "near_span": (b * lanes, 24 * n + 16 * n + 20 * int(wc.sum()) + 4 * t),
+        "near_span": (b * lanes, 24 * n + 16 * n + 20 * windows + 4 * t),
     }
     out = {}
     for k, (pairs, nbytes) in work.items():
@@ -176,6 +187,38 @@ def bounds_ms(cfg, ps, ss, bands, tables):
         out[k] = (1e3 * max(t_ops, t_mem),
                   "operations" if t_ops >= t_mem else "bytes")
     return out
+
+
+def live_lanes(bands):
+    """Set mask bits over each tile's first win_cnt windows, summed."""
+    wc = bands.win_cnt.to(torch.int64)
+    lane_ok = torch.arange(bands.win_first.shape[1],
+                           device=wc.device) < wc[:, None]
+    return int((popcount32(bands.win_mask) * lane_ok[:, None, :]).sum())
+
+
+def near_pairs_report(label, cfg, bands):
+    """near_span's pairs: all 128 lanes of every live window against the
+    live lanes alone (what the kernel sweeps and the bound counts)."""
+    windows = int(bands.win_cnt.sum())
+    lanes = live_lanes(bands)
+    b = cfg.force_tile
+    log(f"[{label}] near_span pairs: window lanes {windows * 128 * b:.4e} "
+        f"({windows} windows), live {lanes * b:.4e}; live share "
+        f"{lanes / max(windows * 128, 1):.4f} ({lanes / max(windows, 1):.1f} "
+        f"of 128 lanes per window)")
+
+
+def skinned_bands(cfg, state):
+    """The runner's rebuild at `state` with envelopes for rebuild_every
+    steps: (pos, mass, cells, ss, bands, tables, s_valid, k_next)."""
+    pos, vel, mass, acc, orig = simulation._pad_cycle_state(state,
+                                                           cfg.force_tile)
+    k_env = torch.full((), cfg.rebuild_every, device=DEVICE)
+    (pos, _, mass, _, _, _), (cells, ss, bands, tables, _), (
+        s_valid, k_next) = simulation._adaptive_rebuild_fn(cfg)(
+            pos, vel, mass, acc, orig, k_env)
+    return pos, mass, cells, ss, bands, tables, s_valid, k_next
 
 
 def check_geometry(label, cfg):
@@ -357,9 +400,9 @@ def check_finite(label, state):
 
 def runner_phase(cfg, steps, chunk=32):
     """The adaptive runner under drift_protocol from the initial
-    conditions; returns its launch counts and, per force kernel, its
-    (relative, absolute) error against the plain version on the runner's
-    skinned bands at the evolved state."""
+    conditions; returns its launch counts and, per force kernel on the
+    runner's skinned bands at the evolved state, its (relative, absolute)
+    error against the plain version and its (time, bound) in ms."""
     sim = Simulation(cfg, device=DEVICE)
     ic = sim.init_state()
     sync()
@@ -406,20 +449,23 @@ def runner_phase(cfg, steps, chunk=32):
     ps, ms, cs, _ = sorted_inputs(cfg, state)
     cells, ss, bands, _ = forces.build_bands(ps, ms, cs, cfg)
     band_report("runner, evolved state, no skins", cfg, cells, ss, bands)
-    pos, vel, mass, acc, orig = simulation._pad_cycle_state(state,
-                                                           cfg.force_tile)
-    k_env = torch.full((), cfg.rebuild_every, device=DEVICE)
-    (pos, _, mass, _, _, _), (cells, ss, bands, tables, _), (
-        s_valid, k_next) = simulation._adaptive_rebuild_fn(cfg)(
-            pos, vel, mass, acc, orig, k_env)
+    pos, mass, cells, ss, bands, tables, s_valid, k_next = skinned_bands(
+        cfg, state)
     band_report(f"runner, evolved state, {cfg.rebuild_every}-step skins", cfg,
                 cells, ss, bands)
     log(f"[runner] that rebuild: s_valid {int(s_valid)}, k_next "
         f"{int(k_next)}")
-    errs = compare(kernel_calls(cfg, pos, mass, ss, bands, tables))
+    near_pairs_report("kernels runner", cfg, bands)
+    calls = kernel_calls(cfg, pos, mass, ss, bands, tables)
+    errs = compare(calls)
+    bnd = bounds_ms(cfg, pos, ss, bands, tables)
+    timing = {}
     for k, (rel, abs_err) in errs.items():
+        timing[k] = (event_ms(calls[k][0], 10), bnd[k][0])
         log(f"[kernels runner] {k}: rel_err {rel:.3e} (bound "
-            f"{BOUNDS[k]:.0e}), max abs err {abs_err:.3e}")
+            f"{BOUNDS[k]:.0e}), max abs err {abs_err:.3e}; kernel "
+            f"{timing[k][0]:.3f} ms, bound {bnd[k][0]:.3f} ms ({bnd[k][1]}, "
+            f"{100 * bnd[k][0] / timing[k][0]:.1f}% of it reached)")
         if not rel <= BOUNDS[k]:
             raise RuntimeError(f"{k} on the runner's bands: error {rel} > "
                                f"{BOUNDS[k]}")
@@ -430,7 +476,7 @@ def runner_phase(cfg, steps, chunk=32):
         f"one run_scan chunk of {chunk} steps": lambda: sim.run_scan(nxt,
                                                                      chunk),
     })
-    return launches, errs
+    return launches, errs, timing
 
 
 def check_syncs(sim, ic, state, chunk):
@@ -515,10 +561,104 @@ def probe_phase():
             "replaces": PANEL_REPLACES, "launches": launches[key],
             "max_abs_err": abs_err, "ms": res["ms"][name], "plain_ms": p_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "ms_runner": None, "bound_ms_runner": None,
             "rel_err_term_scale": rel, "pairs": n * g,
             "max_rel_diff_vs_vpu": res["diff"].get(name),
         })
     return rows
+
+
+# Variants of csrc/tile_sweeps.cu that `--rungs` builds and times: the
+# label and the values of the source's compile-time macros (terms: 0 FMA
+# + rsqrt.approx, 1 the same with a Newton step, 2 rounded as the plain
+# version from one SFU operation, 3 the same through nvcc's IEEE sqrt
+# and reciprocal; chunk: sources per float32 partial sum, 0 = every term
+# added in float64).
+def _rung(near=None, table=None, threads=None, targets=None):
+    d = []
+    if near is not None:
+        d += [f"NBODY_NEAR_TERMS={near[0]}", f"NBODY_NEAR_CHUNK={near[1]}"]
+    if table is not None:
+        d += [f"NBODY_TABLE_TERMS={table[0]}", f"NBODY_TABLE_CHUNK={table[1]}"]
+    if threads is not None:
+        d += [f"NBODY_TILE_THREADS={threads}", f"NBODY_TILE_TARGETS={targets}"]
+    return tuple(d)
+
+
+RUNGS = {
+    "shipped (near fast/128, table ieee/f64, 128 threads x 4 targets)":
+        _rung(),
+    "near fast/f64 (b), table fast/f64 (b)": _rung((0, 0), (0, 0)),
+    "near fast/16, table fast/8": _rung((0, 16), (0, 8)),
+    "near newton/128, table newton/f64": _rung((1, 128), (1, 0)),
+    "near ieee/128, table ieee/8": _rung((2, 128), (2, 8)),
+    "near ieee/f64, table ieee/128": _rung((2, 0), (2, 128)),
+    "near ieeelib/f64 (c), table ieeelib/f64 (c)": _rung((3, 0), (3, 0)),
+    "shipped rungs, 128 threads x 1 target": _rung(threads=128, targets=1),
+    "shipped rungs, 256 threads x 2 targets": _rung(threads=256, targets=2),
+    "shipped rungs, 512 threads x 1 target": _rung(threads=512, targets=1),
+    "shipped rungs, tiles in index order": ("NBODY_TILE_ORDER=0",),
+    "staging alone (8 sources swept per batch; errors are meaningless)":
+        ("NBODY_SWEEP_LIMIT=8",),
+}
+
+
+def rungs_phase(steps):
+    """Every variant of RUNGS: near_span's and table_sweep's error against
+    the plain versions at the four geometries and their time at the 1M IC
+    and on the runner's skinned bands after `steps` steps."""
+    from concurrent.futures import ThreadPoolExecutor
+    from unittest import mock
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda d: build.build("tile_sweeps", defines=d),
+                      RUNGS.values()))
+    log(f"[rungs] {len(RUNGS)} variants built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    base = PRESETS["v5_bench"]
+    names = ("table_sweep", "near_span")
+
+    def geometry(cfg, ps, ms, ss, bands, tables):
+        calls = kernel_calls(cfg, ps, ms, ss, bands, tables)
+        plain = {k: pfn() for k, (_, pfn) in calls.items()}
+        total = sum(plain.values()).norm(dim=1) + 1e-6
+        return ({k: calls[k][0] for k in names},
+                {k: plain[k] for k in names}, total)
+
+    def initial(cfg):
+        ps, ms, cs, _ = sorted_inputs(cfg, make_initial_state(cfg,
+                                                              device=DEVICE))
+        _, ss, bands, tables = forces.build_bands(ps, ms, cs, cfg)
+        return geometry(cfg, ps, ms, ss, bands, tables)
+
+    t128 = base.replace(n=50_000, force_tile=128, near_cap=60)
+    geos = {"t512": initial(base.replace(n=50_000)), "t128": initial(t128),
+            "ic": initial(base)}
+    sim = Simulation(base, device=DEVICE)
+    state = metrics.drift_protocol(sim, sim.init_state(), steps)["state"]
+    pos, mass, _, ss, bands, tables, _, _ = skinned_bands(base, state)
+    geos["runner"] = geometry(base, pos, mass, ss, bands, tables)
+    log(f"[rungs] geometries ready ({steps} runner steps) in "
+        f"{time.perf_counter() - t0:.1f} s; columns: ms at the IC, ms on the "
+        f"runner's bands, rel_err at {list(geos)}")
+    load = build.load
+    for label, defines in RUNGS.items():
+        variant = load("tile_sweeps", defines)
+
+        def load_variant(name, variant=variant):
+            return variant if name == "tile_sweeps" else load(name)
+
+        with mock.patch.object(build, "load", load_variant):
+            for k in names:
+                errs = []
+                for kfns, plain, total in geos.values():
+                    diff = (kfns[k]() - plain[k]).norm(dim=1)
+                    errs.append(float((diff / total).max()))
+                ms = [event_ms(geos[g][0][k], 10) for g in ("ic", "runner")]
+                log(f"[rungs] {label} | {k}: {ms[0]:.3f} ms, {ms[1]:.3f} ms, "
+                    f"rel_err " + " ".join(f"{e:.2e}" for e in errs)
+                    + f" (bound {BOUNDS[k]:.0e})")
 
 
 def main() -> int:
@@ -539,6 +679,18 @@ def main() -> int:
         build.load(name)
     log(f"[build] {', '.join(p.name for p in paths.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
+
+    if sys.argv[1:2] == ["--rungs"]:
+        rungs_phase(int(sys.argv[2]) if sys.argv[2:] else RUNNER_STEPS)
+        print(smi)
+        return 0
+
+    bad = kern.inv_sqrt_mismatches(DEVICE)
+    log(f"[build] table_sweep's one-SFU 1/sqrt differs from IEEE sqrt and "
+        f"division at {bad} floats of [2^-100, inf) (at most "
+        f"{kern.INV_SQRT_TIES}: two per odd binade)")
+    if bad > kern.INV_SQRT_TIES:
+        raise RuntimeError(f"inv_sqrt_rn: {bad} mismatches")
 
     base = PRESETS["v5_bench"]
     geo_err = {
@@ -585,7 +737,8 @@ def main() -> int:
                                            for k, v in phases.items()))
     band_report("main", cfg, cells, ss, bands)
 
-    launches, runner_err = runner_phase(cfg, RUNNER_STEPS)
+    near_pairs_report("kernels main", cfg, bands)
+    launches, runner_err, runner_ms = runner_phase(cfg, RUNNER_STEPS)
 
     calls = kernel_calls(cfg, ps, ms, ss, bands, tables)
     errs = compare(calls)
@@ -598,10 +751,11 @@ def main() -> int:
                                f"{BOUNDS[k]}")
         k_ms, p_ms = event_ms(kfn, 20), event_ms(pfn, 2)
         rows.append({
-            "name": k, "route": "cuda", "source": SOURCE,
+            "name": k, "route": "cuda", "source": SOURCE[k],
             "replaces": REPLACES[k], "launches": launches[k],
             "max_abs_err": abs_err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bnd[k][0], "bound_by": bnd[k][1], "library_ms": None,
+            "ms_runner": runner_ms[k][0], "bound_ms_runner": runner_ms[k][1],
             "rel_err_main": rel, "rel_err_runner": runner_err[k][0],
             "rel_err_t512": geo_err["t512"][k],
             "rel_err_t128": geo_err["t128"][k],
@@ -609,7 +763,8 @@ def main() -> int:
             "launches_per_step": launches_step[k] / len(step_ms),
         })
         log(f"[kernels main] {k}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-            f"bound {bnd[k][0]:.3f} ms ({bnd[k][1]}), rel_err {rel:.3e}")
+            f"bound {bnd[k][0]:.3f} ms ({bnd[k][1]}, "
+            f"{100 * bnd[k][0] / k_ms:.1f}% of it reached), rel_err {rel:.3e}")
 
     rows += probe_phase()
 

@@ -4,8 +4,10 @@ Each library is one source compiled by ``nvcc`` into a shared library
 with a plain C interface under ``nbody_tpu_torch/build/`` at first use;
 the file name carries a hash of the source and its flags, so an edited
 source builds anew and a built one is reused.  ``load`` opens it with
-ctypes and declares every entry point's argument types; ``build_all``
-starts one ``nvcc`` per library, all at once.
+ctypes and declares every entry point's argument types.  ``defines``
+builds a variant of a source with other values of its compile-time
+macros (the rungs that ``chip_smoke.py --rungs`` times); the package
+itself never passes any.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parents[2]
 BUILD_DIR = _PKG / "build"
@@ -35,20 +37,27 @@ class Library(NamedTuple):
 LIBRARIES = {
     "forces": Library(
         _PKG / "csrc" / "forces.cu",
-        # no fused multiply-adds: each force term rounds as the plain
+        # no fused multiply-adds: each far-sweep term rounds as the plain
         # PyTorch version rounds it (see the numerics note in forces.cu)
         ["-fmad=false"],
         {
             # pos, n, com, gmass, s_cap, n_live, soft, acc, stream
             "nbody_far_sweep": [_P, _I, _P, _P, _I, _P, _F, _P, _P],
+        }),
+    "tile_sweeps": Library(
+        _PKG / "csrc" / "tile_sweeps.cu",
+        [],
+        {
             # pos, tiles, b, tx, ty, tz, tm, rows, near_cnt, row_cnt,
             # near_cap, soft, acc, stream
             "nbody_table_sweep": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I,
-                                  _F, _P, _P],
+                                  _P, _F, _P, _P],
             # tgt, tiles, b, src_pos, src_mass, n_src, win_first, win_mask,
-            # win_cnt, w_cap, g, soft, acc, stream
-            "nbody_near_span": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _F,
-                                _F, _P, _P],
+            # win_cnt, w_cap, order, g, soft, acc, stream
+            "nbody_near_span": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _P,
+                                _F, _F, _P, _P],
+            # lo, hi (float bit patterns), bad (uint64 count), stream
+            "nbody_inv_sqrt_check": [ctypes.c_uint, ctypes.c_uint, _P, _P],
         }),
     "panel": Library(
         _PKG / "csrc" / "panel.cu",
@@ -59,7 +68,7 @@ LIBRARIES = {
         }),
 }
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
@@ -74,69 +83,53 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    lib = LIBRARIES[name]
-    flags = " ".join(ARCH_FLAGS + lib.flags).encode()
-    digest = hashlib.sha256(lib.source.read_bytes() + flags).hexdigest()[:16]
+def _flags(name: str, defines: Sequence[str]) -> List[str]:
+    return ARCH_FLAGS + LIBRARIES[name].flags + [f"-D{d}" for d in defines]
+
+
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
+    source = LIBRARIES[name].source.read_bytes()
+    flags = " ".join(_flags(name, defines)).encode()
+    digest = hashlib.sha256(source + flags).hexdigest()[:16]
     return BUILD_DIR / f"libnbody_{name}_{digest}.so"
 
 
-def _start(name: str):
-    """(final path, temp path, nvcc process or None when already built)."""
-    out = library_path(name)
+def build(name: str, verbose: bool = False,
+          defines: Sequence[str] = ()) -> Path:
+    """Compile one library unless its source's build exists; returns its
+    path.  `verbose` prints ptxas' register and shared-memory report to
+    stderr.  `defines` are NAME=value macros for a variant build."""
+    out = library_path(name, defines)
     if out.exists():
-        return out, None, None
+        return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    lib = LIBRARIES[name]
-    cmd = [nvcc(), *ARCH_FLAGS, *lib.flags, "-std=c++17", "-O3", "-shared",
+    cmd = [nvcc(), *_flags(name, defines), "-std=c++17", "-O3", "-shared",
            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           str(lib.source)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-    return out, tmp, proc
-
-
-def _finish(name: str, out: Path, tmp, proc, verbose: bool) -> Path:
-    if proc is None:
-        return out
-    _, err = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):\n{err}")
+           str(LIBRARIES[name].source)]
+    done = subprocess.run(cmd, capture_output=True, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name} ({done.returncode}):\n"
+                           f"{done.stderr}")
     if verbose:
-        print(err, file=sys.stderr, end="")
+        print(done.stderr, file=sys.stderr, end="")
     os.replace(tmp, out)
     return out
 
 
-def build(name: str, verbose: bool = False) -> Path:
-    """Compile one library unless its source's build exists; returns its
-    path.  `verbose` prints ptxas' register and shared-memory report to
-    stderr."""
-    return _finish(name, *_start(name), verbose)
-
-
 def build_all(verbose: bool = False) -> Dict[str, Path]:
-    """Build every library, one nvcc each, all started together."""
-    started = {name: _start(name) for name in LIBRARIES}
-    paths, errors = {}, []
-    for name, s in started.items():     # wait for every nvcc, then raise
-        try:
-            paths[name] = _finish(name, *s, verbose)
-        except RuntimeError as e:
-            errors.append(e)
-    if errors:
-        raise errors[0]
-    return paths
+    """Build every library, one nvcc each."""
+    return {name: build(name, verbose) for name in LIBRARIES}
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     """One loaded kernel library (built on first call)."""
-    if name not in _loaded:
-        lib = ctypes.CDLL(str(build(name)))
+    key = (name, tuple(defines))
+    if key not in _loaded:
+        lib = ctypes.CDLL(str(build(name, defines=defines)))
         for fn_name, argtypes in LIBRARIES[name].signatures.items():
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _loaded[name] = lib
-    return _loaded[name]
+        _loaded[key] = lib
+    return _loaded[key]

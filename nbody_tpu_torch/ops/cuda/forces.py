@@ -1,10 +1,12 @@
-"""Wrappers of the CUDA force kernels (csrc/forces.cu).
+"""Wrappers of the CUDA force kernels (csrc/forces.cu: the far sweep;
+csrc/tile_sweeps.cu: the table and near-span sweeps).
 
 Each wrapper takes the same arguments as its plain PyTorch version in
 ``nbody_tpu_torch.ops.forces``.  On CPU tensors it returns the plain
 version; on CUDA tensors it checks device, dtype, shape and contiguity,
-allocates the output, launches the kernel on the current stream and
-raises if the launch failed.  ``LAUNCHES`` counts kernel launches per
+allocates the output (and, for the two per-tile kernels, the
+heaviest-first tile order), launches the kernel on the current stream
+and raises if the launch failed.  ``LAUNCHES`` counts kernel launches per
 wrapper, so a run can show that its path went through the kernels.
 """
 
@@ -23,6 +25,14 @@ LAUNCHES = {"far_sweep": 0, "table_sweep": 0, "near_span": 0}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def heavy_first(work: torch.Tensor) -> torch.Tensor:
+    """Tile indices by falling `work` ([T] int64, ties in tile order),
+    computed on the tensor's device with no host read.  Block i of a
+    per-tile kernel takes tile order[i], so the longest tiles start first
+    and do not form the launch's tail; the sums do not depend on it."""
+    return torch.argsort(work, descending=True, stable=True)
 
 
 def far_sweep(pos_s: torch.Tensor, supers: "_forces.Supers",
@@ -57,13 +67,15 @@ def table_sweep(tgt_pos: torch.Tensor, tables: "_forces.TableSet",
     if t * b != tgt_pos.shape[0]:
         raise ValueError(f"{tgt_pos.shape[0]} targets are not {t} tiles of {b}")
     out = torch.empty((t * b, 3), dtype=f32, device=tgt_pos.device)
+    order = heavy_first(tables.near_cnt + tables.row_cnt)
     planes = [check(p, f32, (t, rows), name) for p, name in
               zip(tables[:4], ("tx", "ty", "tz", "tm"))]
-    rc = build.load("forces").nbody_table_sweep(
+    rc = build.load("tile_sweeps").nbody_table_sweep(
         check(tgt_pos, f32, (t * b, 3), "pos"), t, b, *planes, rows,
         check(tables.near_cnt, i32, (t,), "near_cnt"),
         check(tables.row_cnt, i32, (t,), "row_cnt"),
-        cfg.near_cap, _forces.soft_term(cfg), out.data_ptr(),
+        cfg.near_cap, order.data_ptr(), _forces.soft_term(cfg),
+        out.data_ptr(),
         stream(tgt_pos))
     launched(rc, "table_sweep", LAUNCHES)
     return out
@@ -84,14 +96,35 @@ def near_span(tgt_pos: torch.Tensor, src_pos: torch.Tensor,
     if t * b != tgt_pos.shape[0]:
         raise ValueError(f"{tgt_pos.shape[0]} targets are not {t} tiles of {b}")
     out = torch.empty((t * b, 3), dtype=f32, device=tgt_pos.device)
-    rc = build.load("forces").nbody_near_span(
+    order = heavy_first(win_cnt)
+    rc = build.load("tile_sweeps").nbody_near_span(
         check(tgt_pos, f32, (t * b, 3), "tgt_pos"), t, b,
         check(src_pos, f32, (n_src, 3), "src_pos"),
         check(src_mass, f32, (n_src,), "src_mass"), n_src,
         check(win_first, i32, (t, w_cap), "win_first"),
         check(win_mask, i32, (t, 4, w_cap), "win_mask"),
-        check(win_cnt, i32, (t,), "win_cnt"), w_cap,
+        check(win_cnt, i32, (t,), "win_cnt"), w_cap, order.data_ptr(),
         float(cfg.g), _forces.soft_term(cfg), out.data_ptr(),
         stream(tgt_pos))
     launched(rc, "near_span", LAUNCHES)
     return out
+
+
+# Floats from 2^-100 up where the table sweep's one-SFU 1 / sqrt may differ
+# from IEEE sqrt and division: two per odd binade (tile_sweeps.cu,
+# inv_sqrt_rn).
+INV_SQRT_TIES = 2 * 114
+
+
+def inv_sqrt_mismatches(device: torch.device) -> int:
+    """How many float32 values in [2^-100, inf) the table sweep's one-SFU
+    1 / sqrt rounds differently from IEEE sqrt and division, every one of
+    them tried on `device`; the sweep's agreement with its plain version
+    rests on no more than INV_SQRT_TIES."""
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    rc = build.load("tile_sweeps").nbody_inv_sqrt_check(
+        (127 - 100) << 23, 0x7F800000, bad.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"inv_sqrt check launch failed: CUDA error {rc}")
+    return int(bad)
