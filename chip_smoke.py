@@ -2,7 +2,6 @@
 """Smoke run of nbody_tpu_torch on one CUDA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --rungs [STEPS]
 
 Builds the CUDA kernels from nbody_tpu_torch/csrc (one nvcc per source),
 holds each force kernel against its plain PyTorch version at two 50k-body
@@ -19,8 +18,9 @@ launch counts zeroed before each and read after it:
            error after the run, each force kernel against its plain
            version on the runner's own skinned bands at the evolved
            state with its time and bound there, near_span's window-lane
-           and live pairs, the host syncs of a 32-step run and of inner steps
-           (at most one per rebuild, none in an inner step), and
+           and live pairs, the tile orders' time, the host syncs of a
+           32-step run and of inner steps (at most one per rebuild, none
+           in an inner step), and
            profiles of one 32-step chunk and of one inner step;
   [probe]  ``nbody_tpu_torch.tools.prof_mxu`` at its own shape, the panel
            sweep kernel in its three variants, each held against its plain
@@ -30,12 +30,6 @@ one JSON object per kernel ({"kernels": [...]}, times in ms on this
 card), preceded by the card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when no CUDA device is present.
-
-With --rungs it instead rebuilds csrc/tile_sweeps.cu once per entry of
-RUNGS (the arithmetic rungs and block shapes tried for near_span and
-table_sweep) and prints each one's error against the plain versions at
-the four geometries and its time at the 1M IC and on the runner's skinned
-bands after STEPS runner steps (default 1024).
 """
 
 from __future__ import annotations
@@ -207,6 +201,16 @@ def near_pairs_report(label, cfg, bands):
         f"({windows} windows), live {lanes * b:.4e}; live share "
         f"{lanes / max(windows * 128, 1):.4f} ({lanes / max(windows, 1):.1f} "
         f"of 128 lanes per window)")
+
+
+def tile_order_report(label, bands, tables):
+    """Device time of the heaviest-first tile orders, which the two
+    per-tile wrappers compute on every launch (inside their times)."""
+    work = {"table_sweep": tables.near_cnt + tables.row_cnt,
+            "near_span": bands.win_cnt}
+    log(f"[{label}] heaviest-first tile order, inside the kernel times: "
+        + ", ".join(f"{k} {event_ms(lambda: kern.heavy_first(w), 10):.3f} ms"
+                    for k, w in work.items()))
 
 
 def skinned_bands(cfg, state):
@@ -469,6 +473,7 @@ def runner_phase(cfg, steps, chunk=32):
         if not rel <= BOUNDS[k]:
             raise RuntimeError(f"{k} on the runner's bands: error {rel} > "
                                f"{BOUNDS[k]}")
+    tile_order_report("kernels runner", bands, tables)
     check_syncs(sim, ic, nxt, chunk)
     stepper = sim.make_stepper(nxt)
     profile_spans({
@@ -568,99 +573,6 @@ def probe_phase():
     return rows
 
 
-# Variants of csrc/tile_sweeps.cu that `--rungs` builds and times: the
-# label and the values of the source's compile-time macros (terms: 0 FMA
-# + rsqrt.approx, 1 the same with a Newton step, 2 rounded as the plain
-# version from one SFU operation, 3 the same through nvcc's IEEE sqrt
-# and reciprocal; chunk: sources per float32 partial sum, 0 = every term
-# added in float64).
-def _rung(near=None, table=None, threads=None, targets=None):
-    d = []
-    if near is not None:
-        d += [f"NBODY_NEAR_TERMS={near[0]}", f"NBODY_NEAR_CHUNK={near[1]}"]
-    if table is not None:
-        d += [f"NBODY_TABLE_TERMS={table[0]}", f"NBODY_TABLE_CHUNK={table[1]}"]
-    if threads is not None:
-        d += [f"NBODY_TILE_THREADS={threads}", f"NBODY_TILE_TARGETS={targets}"]
-    return tuple(d)
-
-
-RUNGS = {
-    "shipped (near fast/128, table ieee/f64, 128 threads x 4 targets)":
-        _rung(),
-    "near fast/f64 (b), table fast/f64 (b)": _rung((0, 0), (0, 0)),
-    "near fast/16, table fast/8": _rung((0, 16), (0, 8)),
-    "near newton/128, table newton/f64": _rung((1, 128), (1, 0)),
-    "near ieee/128, table ieee/8": _rung((2, 128), (2, 8)),
-    "near ieee/f64, table ieee/128": _rung((2, 0), (2, 128)),
-    "near ieeelib/f64 (c), table ieeelib/f64 (c)": _rung((3, 0), (3, 0)),
-    "shipped rungs, 128 threads x 1 target": _rung(threads=128, targets=1),
-    "shipped rungs, 256 threads x 2 targets": _rung(threads=256, targets=2),
-    "shipped rungs, 512 threads x 1 target": _rung(threads=512, targets=1),
-    "shipped rungs, tiles in index order": ("NBODY_TILE_ORDER=0",),
-    "staging alone (8 sources swept per batch; errors are meaningless)":
-        ("NBODY_SWEEP_LIMIT=8",),
-}
-
-
-def rungs_phase(steps):
-    """Every variant of RUNGS: near_span's and table_sweep's error against
-    the plain versions at the four geometries and their time at the 1M IC
-    and on the runner's skinned bands after `steps` steps."""
-    from concurrent.futures import ThreadPoolExecutor
-    from unittest import mock
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(8) as pool:
-        list(pool.map(lambda d: build.build("tile_sweeps", defines=d),
-                      RUNGS.values()))
-    log(f"[rungs] {len(RUNGS)} variants built in "
-        f"{time.perf_counter() - t0:.1f} s")
-    base = PRESETS["v5_bench"]
-    names = ("table_sweep", "near_span")
-
-    def geometry(cfg, ps, ms, ss, bands, tables):
-        calls = kernel_calls(cfg, ps, ms, ss, bands, tables)
-        plain = {k: pfn() for k, (_, pfn) in calls.items()}
-        total = sum(plain.values()).norm(dim=1) + 1e-6
-        return ({k: calls[k][0] for k in names},
-                {k: plain[k] for k in names}, total)
-
-    def initial(cfg):
-        ps, ms, cs, _ = sorted_inputs(cfg, make_initial_state(cfg,
-                                                              device=DEVICE))
-        _, ss, bands, tables = forces.build_bands(ps, ms, cs, cfg)
-        return geometry(cfg, ps, ms, ss, bands, tables)
-
-    t128 = base.replace(n=50_000, force_tile=128, near_cap=60)
-    geos = {"t512": initial(base.replace(n=50_000)), "t128": initial(t128),
-            "ic": initial(base)}
-    sim = Simulation(base, device=DEVICE)
-    state = metrics.drift_protocol(sim, sim.init_state(), steps)["state"]
-    pos, mass, _, ss, bands, tables, _, _ = skinned_bands(base, state)
-    geos["runner"] = geometry(base, pos, mass, ss, bands, tables)
-    log(f"[rungs] geometries ready ({steps} runner steps) in "
-        f"{time.perf_counter() - t0:.1f} s; columns: ms at the IC, ms on the "
-        f"runner's bands, rel_err at {list(geos)}")
-    load = build.load
-    for label, defines in RUNGS.items():
-        variant = load("tile_sweeps", defines)
-
-        def load_variant(name, variant=variant):
-            return variant if name == "tile_sweeps" else load(name)
-
-        with mock.patch.object(build, "load", load_variant):
-            for k in names:
-                errs = []
-                for kfns, plain, total in geos.values():
-                    diff = (kfns[k]() - plain[k]).norm(dim=1)
-                    errs.append(float((diff / total).max()))
-                ms = [event_ms(geos[g][0][k], 10) for g in ("ic", "runner")]
-                log(f"[rungs] {label} | {k}: {ms[0]:.3f} ms, {ms[1]:.3f} ms, "
-                    f"rel_err " + " ".join(f"{e:.2e}" for e in errs)
-                    + f" (bound {BOUNDS[k]:.0e})")
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -679,11 +591,6 @@ def main() -> int:
         build.load(name)
     log(f"[build] {', '.join(p.name for p in paths.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
-
-    if sys.argv[1:2] == ["--rungs"]:
-        rungs_phase(int(sys.argv[2]) if sys.argv[2:] else RUNNER_STEPS)
-        print(smi)
-        return 0
 
     bad = kern.inv_sqrt_mismatches(DEVICE)
     log(f"[build] table_sweep's one-SFU 1/sqrt differs from IEEE sqrt and "
@@ -765,6 +672,8 @@ def main() -> int:
         log(f"[kernels main] {k}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
             f"bound {bnd[k][0]:.3f} ms ({bnd[k][1]}, "
             f"{100 * bnd[k][0] / k_ms:.1f}% of it reached), rel_err {rel:.3e}")
+
+    tile_order_report("kernels main", bands, tables)
 
     rows += probe_phase()
 

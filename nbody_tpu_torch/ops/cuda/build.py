@@ -4,10 +4,7 @@ Each library is one source compiled by ``nvcc`` into a shared library
 with a plain C interface under ``nbody_tpu_torch/build/`` at first use;
 the file name carries a hash of the source and its flags, so an edited
 source builds anew and a built one is reused.  ``load`` opens it with
-ctypes and declares every entry point's argument types.  ``defines``
-builds a variant of a source with other values of its compile-time
-macros (the rungs that ``chip_smoke.py --rungs`` times); the package
-itself never passes any.
+ctypes and declares every entry point's argument types.
 """
 
 from __future__ import annotations
@@ -19,7 +16,7 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple
 
 _PKG = Path(__file__).resolve().parents[2]
 BUILD_DIR = _PKG / "build"
@@ -49,7 +46,7 @@ LIBRARIES = {
         [],
         {
             # pos, tiles, b, tx, ty, tz, tm, rows, near_cnt, row_cnt,
-            # near_cap, soft, acc, stream
+            # near_cap, order, soft, acc, stream
             "nbody_table_sweep": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I,
                                   _P, _F, _P, _P],
             # tgt, tiles, b, src_pos, src_mass, n_src, win_first, win_mask,
@@ -68,7 +65,7 @@ LIBRARIES = {
         }),
 }
 
-_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
@@ -83,30 +80,26 @@ def nvcc() -> str:
     return found
 
 
-def _flags(name: str, defines: Sequence[str]) -> List[str]:
-    return ARCH_FLAGS + LIBRARIES[name].flags + [f"-D{d}" for d in defines]
-
-
-def library_path(name: str, defines: Sequence[str] = ()) -> Path:
-    source = LIBRARIES[name].source.read_bytes()
-    flags = " ".join(_flags(name, defines)).encode()
-    digest = hashlib.sha256(source + flags).hexdigest()[:16]
+def library_path(name: str) -> Path:
+    lib = LIBRARIES[name]
+    flags = " ".join(ARCH_FLAGS + lib.flags).encode()
+    digest = hashlib.sha256(lib.source.read_bytes() + flags).hexdigest()[:16]
     return BUILD_DIR / f"libnbody_{name}_{digest}.so"
 
 
-def build(name: str, verbose: bool = False,
-          defines: Sequence[str] = ()) -> Path:
+def build(name: str, verbose: bool = False) -> Path:
     """Compile one library unless its source's build exists; returns its
     path.  `verbose` prints ptxas' register and shared-memory report to
-    stderr.  `defines` are NAME=value macros for a variant build."""
-    out = library_path(name, defines)
+    stderr."""
+    out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *_flags(name, defines), "-std=c++17", "-O3", "-shared",
+    lib = LIBRARIES[name]
+    cmd = [nvcc(), *ARCH_FLAGS, *lib.flags, "-std=c++17", "-O3", "-shared",
            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           str(LIBRARIES[name].source)]
+           str(lib.source)]
     done = subprocess.run(cmd, capture_output=True, text=True)
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name} ({done.returncode}):\n"
@@ -122,14 +115,13 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
     return {name: build(name, verbose) for name in LIBRARIES}
 
 
-def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """One loaded kernel library (built on first call)."""
-    key = (name, tuple(defines))
-    if key not in _loaded:
-        lib = ctypes.CDLL(str(build(name, defines=defines)))
+    if name not in _loaded:
+        lib = ctypes.CDLL(str(build(name)))
         for fn_name, argtypes in LIBRARIES[name].signatures.items():
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _loaded[key] = lib
-    return _loaded[key]
+        _loaded[name] = lib
+    return _loaded[name]

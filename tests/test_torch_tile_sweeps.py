@@ -3,12 +3,13 @@ table_sweep, csrc/tile_sweeps.cu) and runs on the CPU: the heaviest-first
 tile order against numpy, the evidence that the near band bears float32
 sums (computed here, window by window, and held to a tenth of the kernel's
 bound against the float64-summing plain version), and the build table
-(every entry point is in its source, a variant build has its own file,
-the rung macros chip_smoke.py sets exist)."""
+(every entry point is in its source, a library's file name follows its
+source and flags, nothing selects a kernel variant)."""
 
 import re
 import sys
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -47,7 +48,10 @@ def _bands(cfg):
 
 def _near_float32(ps, ms, bands, cfg):
     """The near band with float32 sums only: each window's 128 terms
-    added in lane order, then the windows of the tile in list order."""
+    added in lane order, then the windows of the tile in list order.  The
+    terms are IEEE 1 / sqrt without fusion, not the kernel's fused
+    rsqrt.approx terms: this covers the summation alone, and the kernel's
+    term error is held on the card by chip_smoke.py."""
     b = cfg.force_tile
     p, m = ps.numpy(), ms.numpy()
     n_src = p.shape[0]
@@ -109,27 +113,41 @@ def test_every_entry_point_is_defined_in_its_source(name):
         assert len(found.group(1).split(",")) == len(argtypes), fn
 
 
-def test_a_variant_build_has_its_own_file():
+def test_a_library_file_name_follows_its_source_and_flags(tmp_path):
     plain = build.library_path("tile_sweeps")
-    assert plain == build.library_path("tile_sweeps", ())
-    variant = build.library_path("tile_sweeps", ("NBODY_NEAR_TERMS=2",))
-    assert variant != plain and variant.parent == plain.parent
-    assert build.library_path("forces") != plain
+    assert plain == build.library_path("tile_sweeps")
+    assert plain.parent == build.BUILD_DIR
+    assert len({build.library_path(n) for n in build.LIBRARIES}) == len(
+        build.LIBRARIES)
+    lib = build.LIBRARIES["tile_sweeps"]
+    edited = tmp_path / lib.source.name
+    edited.write_text(lib.source.read_text() + "// edited\n")
+    for changed in (lib._replace(source=edited),
+                    lib._replace(flags=["-fmad=false"])):
+        with mock.patch.dict(build.LIBRARIES, {"tile_sweeps": changed}):
+            assert build.library_path("tile_sweeps") != plain
 
 
-def test_rung_macros_exist_in_the_source():
-    """chip_smoke.py --rungs rebuilds tile_sweeps.cu with these macros; a
-    macro the source does not read would time the shipped rung twice."""
+def _chip_smoke():
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(REPO))
-    text = build.LIBRARIES["tile_sweeps"].source.read_text()
-    assert chip_smoke.RUNGS
-    for label, defines in chip_smoke.RUNGS.items():
-        for define in defines:
-            macro, value = define.split("=")
-            assert f"#ifndef {macro}\n" in text, (label, macro)
-            assert int(value) >= 0
-    assert chip_smoke.BOUNDS["near_span"] == NEAR_BOUND
+    return chip_smoke
+
+
+def test_nothing_selects_a_kernel_variant():
+    """One arithmetic per kernel, in plain code: the sources read no
+    macro a build could set, the build passes none, and chip_smoke.py
+    reads no argument and no environment variable."""
+    for lib in build.LIBRARIES.values():
+        text = lib.source.read_text()
+        assert "#ifndef" not in text and "#ifdef" not in text, lib.source
+        assert not any(f.startswith("-D") for f in lib.flags)
+    smoke = Path(_chip_smoke().__file__).read_text()
+    assert "sys.argv" not in smoke and "environ" not in smoke
+
+
+def test_near_bound_is_chip_smokes():
+    assert _chip_smoke().BOUNDS["near_span"] == NEAR_BOUND
