@@ -24,7 +24,20 @@ launch counts zeroed before each and read after it:
            profiles of one 32-step chunk and of one inner step;
   [probe]  ``nbody_tpu_torch.tools.prof_mxu`` at its own shape, the panel
            sweep kernel in its three variants, each held against its plain
-           version.
+           version;
+  [reference] ``Simulation(cfg, method="barnes_hut_reference")``, one step
+           of the rope-walk oracle from the IC (made with no device named:
+           CUDA by default), against a float64 direct sum and the
+           production step;
+  [cli]    ``python -m nbody_tpu_torch run --preset v5_bench`` as a
+           subprocess (its dump and checkpoint read back, the checkpoint
+           dumped again byte for byte), then ``info`` and ``bench`` in
+           this process;
+  [render] the v5 preset (N = 500,000) after 16 steps of run_scan,
+           rendered in both modes on the card and held against the CPU's
+           frame;
+  [view]   the live viewer at v5 over HTTP on 127.0.0.1: page, JPEG
+           frame, stats, a camera drag, then frames/s over 10 s.
 Every failing check raises (non-zero exit).  The line before the last is
 one JSON object per kernel ({"kernels": [...]}, times in ms on this
 card), preceded by the card's name and power limit; the last line is
@@ -34,6 +47,8 @@ Exits non-zero without a result when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
+import io as io_module
 import json
 import os
 import subprocess
@@ -42,6 +57,7 @@ import tempfile
 import time
 import warnings
 
+import numpy as np
 import torch
 
 from nbody_tpu_torch.config import PRESETS
@@ -573,6 +589,264 @@ def probe_phase():
     return rows
 
 
+# --- this slice's entry points: the rope-walk oracle, the command line,
+# --- the renderer and the live viewer
+
+CLI_STEPS = 64
+RENDER_STEPS = 16
+VIEW_SECONDS = 10.0
+# max |GPU frame - CPU frame| per pixel channel: the projection is the
+# same float32 operations on both devices; a speed's three-term sum may
+# reduce in another order (a colour's ulp), and the scatter adds are
+# atomics on the GPU: "add" sums up to ~10^2 splats per pixel below the
+# clip at 1 in another order, "depth" sums only depth ties
+RENDER_BOUNDS = {"add": 1e-5, "depth": 1e-6}
+MIN_LIT_PIXELS = 10_000    # of 1280 x 720: the frame shows the galaxy
+
+
+def check_launches(label, launches):
+    """Log a path's force-kernel launch counts; raises if one of the
+    three never launched."""
+    log(f"[{label}] launches {launches}")
+    for k in ("far_sweep", "table_sweep", "near_span"):
+        if launches[k] == 0:
+            raise RuntimeError(f"[{label}] never launched {k}")
+    return launches
+
+
+def launches_since_reset(label):
+    return check_launches(label, dict(kern.LAUNCHES))
+
+
+def reference_phase(cfg, ic):
+    """Simulation(method="barnes_hut_reference"): one step from the IC at
+    cfg.n, its force against a float64 direct sum and against the
+    production step's on the same state."""
+    sim = Simulation(cfg, method="barnes_hut_reference", device=DEVICE)
+    kern.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = sim.step(ic)
+    sync()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(kern.LAUNCHES)
+    st = sim.walk_stats
+    log(f"[reference] v5_bench n={cfg.n}: one barnes_hut_reference step "
+        f"{ms:.1f} ms, {st['iterations']} lockstep iterations, "
+        f"{st['host_reads']} host reads; force kernel launches {launches} "
+        f"(the walk is plain PyTorch)")
+    check_finite("reference", out)
+    med, worst = direct_check(ic, out.acc, cfg)
+    log(f"[reference] acceleration vs float64 direct sum at 4096 bodies: "
+        f"median rel err {med:.3e} (bound 2e-2), max {worst:.3e}")
+    if not med < 0.02:
+        raise RuntimeError(f"reference median force error {med} >= 2%")
+    prod = Simulation(cfg, device=DEVICE).step(ic)
+    rel = (out.acc - prod.acc).norm(dim=1) / prod.acc.norm(dim=1)
+    log(f"[reference] vs the production barnes_hut step on the same state: "
+        f"median rel diff {float(rel.median()):.3e}, max "
+        f"{float(rel.max()):.3e}")
+    return {"ms": ms, **st}
+
+
+def cli_phase():
+    """`python -m nbody_tpu_torch run` at v5_bench as a subprocess (dump
+    and checkpoint read back; its kernel launches read from its stderr),
+    then `info` and `bench` in this process."""
+    from nbody_tpu_torch import cli
+    from nbody_tpu_torch.native import runtime
+    from nbody_tpu_torch.utils import io
+
+    log(f"[cli] native runtime: {runtime.status()}")
+    if not runtime.available():
+        raise RuntimeError("the native runtime did not build")
+    cfg = PRESETS["v5_bench"]
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        dump, ck = os.path.join(d, "out_bh.txt"), os.path.join(d, "ck.npz")
+        cmd = [sys.executable, "-m", "nbody_tpu_torch", "run", "--preset",
+               "v5_bench", "--steps", str(CLI_STEPS), "--log-every", "16",
+               "--diagnostics", "--dump", dump, "--checkpoint", ck]
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=900)
+        res["run_s"] = time.perf_counter() - t0
+        for line in done.stdout.splitlines():
+            if line.startswith(("Step", "wrote")):
+                log(f"[cli run] {line}")
+        for line in done.stderr.splitlines():
+            log(f"[cli run stderr] {line}")
+        if done.returncode != 0:
+            raise RuntimeError(f"cli run exited {done.returncode}")
+        out = done.stdout
+        summ = json.loads(out[out.index("{"):out.rindex("}") + 1])
+        log(f"[cli run] summary {json.dumps(summ)}")
+        log(f"[cli run] wall {res['run_s']:.1f} s for {CLI_STEPS} steps at "
+            f"n={cfg.n} (process start, IC, kernel load, dump and checkpoint "
+            f"included)")
+        tag = "kernel launches: "
+        res["launches_run"] = check_launches("cli run", json.loads(
+            [l for l in done.stderr.splitlines()
+             if l.startswith(tag)][-1][len(tag):]))
+        with open(dump) as f:
+            head = [next(f) for _ in range(4)]
+        want = ["# Barnes-Hut N-Body Simulation Results\n",
+                f"# Final positions and velocities after {CLI_STEPS} steps\n",
+                f"# Bodies: {cfg.n}, Theta: 0.50, dt: 0.020\n",
+                "# Format: x y z vx vy vz\n"]
+        if head != want:
+            raise RuntimeError(f"dump header {head}")
+        t0 = time.perf_counter()
+        meta, rows = io.load_dump(dump)
+        log(f"[cli] load_dump: {rows.shape[0]} rows x {rows.shape[1]} in "
+            f"{time.perf_counter() - t0:.2f} s, meta {meta}")
+        if rows.shape != (cfg.n, 6) or not np.isfinite(rows).all():
+            raise RuntimeError(f"dump rows {rows.shape}")
+        state, step = io.load_checkpoint(ck, device=DEVICE)
+        if step != CLI_STEPS or state.device.type != "cuda":
+            raise RuntimeError(f"checkpoint step {step} on {state.device}")
+        check_finite("cli checkpoint", state)
+        again = os.path.join(d, "again.txt")
+        t0 = time.perf_counter()
+        io.dump_state_text(again, state, cfg, CLI_STEPS)
+        res["dump_write_s"] = time.perf_counter() - t0
+        with open(dump, "rb") as a, open(again, "rb") as b:
+            same = a.read() == b.read()
+        log(f"[cli] checkpoint -> dump_state_text (native writer): "
+            f"{res['dump_write_s']:.2f} s for {cfg.n} rows "
+            f"({os.path.getsize(again) / 1e6:.1f} MB); byte-identical to "
+            f"the run's dump: {same}")
+        if not same:
+            raise RuntimeError("the checkpoint does not round-trip to the "
+                               "dump at %.6f")
+
+    def in_process(label, argv):
+        buf = io_module.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        for line in buf.getvalue().splitlines():
+            log(f"[cli {label}] {line}")
+        if rc != 0:
+            raise RuntimeError(f"cli {label} returned {rc}")
+
+    in_process("info", ["info"])
+    kern.reset_launches()
+    in_process("bench", ["bench", "--preset", "v5_bench", "--frames", "5",
+                         "--phases"])
+    res["launches_bench"] = launches_since_reset("cli bench")
+    return res
+
+
+def render_phase():
+    """The v5 preset after RENDER_STEPS steps of run_scan, rendered in both
+    modes on the card and on the CPU; returns (cfg, state)."""
+    from nbody_tpu_torch.viz.render import render_state, write_ppm
+
+    cfg = PRESETS["v5"]
+    sim = Simulation(cfg, device=DEVICE)
+    state = sim.init_state()
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    state = sim.run_scan(state, RENDER_STEPS)
+    sync()
+    log(f"[render] v5 n={cfg.n}: {RENDER_STEPS} steps of run_scan in "
+        f"{time.perf_counter() - t0:.1f} s")
+    res = {"launches": launches_since_reset("render")}
+    check_finite("render", state)
+    on_cpu = state.to("cpu")
+    for mode, bound in RENDER_BOUNDS.items():
+        gpu = render_state(state, cfg, mode).cpu()
+        cpu = render_state(on_cpu, cfg, mode)
+        diff = (gpu - cpu).abs()
+        ms = event_ms(lambda: render_state(state, cfg, mode), 20)
+        lit = int((cpu.sum(dim=2) > 0).sum())
+        log(f"[render] {mode}: {cfg.render_width}x{cfg.render_height}, "
+            f"{ms:.3f} ms per frame on the card; vs the CPU render: max "
+            f"|diff| {float(diff.max()):.3e} (bound {bound:.0e}), "
+            f"{int((diff > 0).any(dim=2).sum())} of {lit} lit pixels differ")
+        if not float(diff.max()) <= bound:
+            raise RuntimeError(f"render {mode}: {float(diff.max())} > {bound}")
+        if lit < MIN_LIT_PIXELS:
+            raise RuntimeError(f"render {mode}: only {lit} lit pixels")
+        res[f"{mode}_ms"] = ms
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "frame.ppm")
+        write_ppm(path, gpu)
+        log(f"[render] wrote {os.path.getsize(path)} bytes of PPM")
+    return cfg, state, res
+
+
+def view_phase(cfg, state):
+    """SimViewer at cfg (v5, 500k) on 127.0.0.1, an OS-chosen port: the
+    page, a frame, the stats and a camera drag over HTTP, then the view
+    rate over VIEW_SECONDS."""
+    import urllib.request
+
+    from PIL import Image
+
+    from nbody_tpu_torch.viz.viewer import SimViewer, serve
+
+    sim = Simulation(cfg, device=DEVICE)
+    kern.reset_launches()
+    viewer = SimViewer(sim, state, cfg)
+    viewer.start()
+    server = serve(viewer, port=0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=120) as r:
+            return r.status, r.headers.get("Content-Type", ""), r.read()
+
+    try:
+        status, ctype, page = get("/")
+        if status != 200 or b"/stream" not in page:
+            raise RuntimeError(f"GET / {status} {ctype}")
+        status, ctype, jpeg = get("/frame.jpg")
+        is_jpeg = jpeg[:2] == b"\xff\xd8"
+        img = np.asarray(Image.open(io_module.BytesIO(jpeg)))
+        log(f"[view] GET /frame.jpg: {status} {ctype}, {len(jpeg)} bytes, "
+            f"JPEG {is_jpeg}, {img.shape[1]}x{img.shape[0]}, mean level "
+            f"{img.mean():.2f}")
+        if not is_jpeg or img.shape != (cfg.render_height, cfg.render_width,
+                                        3):
+            raise RuntimeError("/frame.jpg is not the frame")
+        if not img.mean() > 0:
+            raise RuntimeError("/frame.jpg is black")
+        before = json.loads(get("/stats")[2])
+        req = urllib.request.Request(
+            url + "/cam", data=json.dumps({"drag_dx": 25, "drag_dy": -10,
+                                           "scroll": 2}).encode(),
+            method="POST")
+        urllib.request.urlopen(req, timeout=60).read()
+        s0 = json.loads(get("/stats")[2])
+        moved = (s0["rot_y"] - before["rot_y"], s0["rot_x"] - before["rot_x"],
+                 s0["distance"] - before["distance"])
+        log(f"[view] POST /cam moved the camera by (rot_y, rot_x, distance) "
+            f"= {moved}")
+        if moved != (5.0, -2.0, -300.0):
+            raise RuntimeError(f"camera moved by {moved}")
+        t0 = time.perf_counter()
+        time.sleep(VIEW_SECONDS)
+        s1 = json.loads(get("/stats")[2])
+        dt = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        viewer.stop()
+    frames, steps = s1["frames"] - s0["frames"], s1["step"] - s0["step"]
+    res = {"fps": frames / dt, "ms_per_step": 1e3 * dt / max(steps, 1),
+           "rebuilds": viewer._stepper.n_rebuilds,
+           "launches": launches_since_reset("view")}
+    log(f"[view] v5 n={cfg.n}, {cfg.render_width}x{cfg.render_height} "
+        f"JPEG: {frames} frames and {steps} steps in {dt:.1f} s: "
+        f"{res['fps']:.2f} frames/s, {res['ms_per_step']:.1f} ms/step; "
+        f"{res['rebuilds']} rebuilds since the viewer started")
+    check_finite("view", viewer.state)
+    if frames < 1:
+        raise RuntimeError("the viewer published no frame")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -676,6 +950,27 @@ def main() -> int:
     tile_order_report("kernels main", bands, tables)
 
     rows += probe_phase()
+
+    # the initial conditions with no device named: CUDA by default
+    ic = make_initial_state(cfg)
+    if ic.pos.device.type != "cuda":
+        raise RuntimeError(f"make_initial_state defaulted to {ic.device}")
+    ref = reference_phase(cfg, ic)
+    cli_res = cli_phase()
+    vcfg, vstate, render_res = render_phase()
+    view_res = view_phase(vcfg, vstate)
+    for row in rows[:3]:
+        k = row["name"]
+        row.update(launches_cli_run=cli_res["launches_run"][k],
+                   launches_cli_bench=cli_res["launches_bench"][k],
+                   launches_render=render_res["launches"][k],
+                   launches_view=view_res["launches"][k])
+    log("[slice] " + json.dumps({
+        "reference": ref,
+        "cli": {k: v for k, v in cli_res.items()
+                if not k.startswith("launches")},
+        "render_ms": {m: render_res[f"{m}_ms"] for m in RENDER_BOUNDS},
+        "view": {k: v for k, v in view_res.items() if k != "launches"}}))
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -3,8 +3,11 @@
 The Barnes-Hut pipeline of nbody_tpu (Morton sort, adaptive octree
 cells, band classification, per-tile tables) and its adaptive band-reuse
 runner in PyTorch, with every Pallas kernel rewritten as a hand CUDA
-kernel for Hopper (csrc/forces.cu: the three force sweeps; csrc/panel.cu:
-the panel probe of tools/_prof_mxu.py).  Module names mirror nbody_tpu's.
+kernel for Hopper (csrc/forces.cu: the far sweep; csrc/tile_sweeps.cu:
+the table and near-span sweeps; csrc/panel.cu: the panel probe of
+tools/_prof_mxu.py), and around it the rope-walk oracle, dumps and
+checkpoints, the renderer, the live viewer and the command line
+(``python -m nbody_tpu_torch``).  Module names mirror nbody_tpu's.
 Runs on the GPU by default; the CPU runs the kernels' plain PyTorch
 versions.  Imports neither JAX nor nbody_tpu.
 """

@@ -9,8 +9,9 @@ carries across with ``nbody_tpu_torch.convert.config_from_dict``.
 the three force sweeps run as the CUDA kernels of ``ops/cuda/forces.py``
 (``False`` asks for their plain PyTorch versions).  The band-reuse
 runners read ``rebuild_every``, ``adaptive_rebuild``, ``hold_farmid`` and
-the skin and hold knobs; the fields of sharding and rendering are carried
-for parity and read by nothing in the port yet.
+the skin and hold knobs and the renderer its camera and frame size; the
+fields of sharding are carried for parity and read by nothing in the
+port yet.
 """
 
 from __future__ import annotations

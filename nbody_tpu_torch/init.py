@@ -5,7 +5,9 @@ bit-exact MSVC ``rand()`` stream after ``srand(seed)``, in float32 numpy,
 so the port starts from the same particle cloud as the reference binaries
 and as ``nbody_tpu``.  The other generators draw from a seeded
 ``torch.Generator`` on the target device: same distributions as the JAX
-package's ``jax.random`` versions, different numbers.
+package's ``jax.random`` versions, different numbers.  Every generator
+builds its state on CUDA unless `device` names another device, and
+raises when no CUDA device is present (``state.default_device``).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from nbody_tpu_torch.config import SimConfig
-from nbody_tpu_torch.state import ParticleState
+from nbody_tpu_torch.state import ParticleState, default_device
 
 _MSVC_A = np.uint64(214013)
 _MSVC_C = np.uint64(2531011)
@@ -67,7 +69,7 @@ def disk_galaxy_msvc(n: int, seed: int = 42, g: float = 0.5,
     pos = np.stack([px, py, pz], axis=1).astype(np.float32)
     vel = np.stack([vx, vy, vz], axis=1).astype(np.float32)
     return ParticleState.create(pos, vel, mass.astype(np.float32),
-                                device=device)
+                                device=default_device(device))
 
 
 def _uniform(shape, seed: int, device) -> torch.Tensor:
@@ -80,7 +82,7 @@ def disk_galaxy_torch(n: int, seed: int = 42, g: float = 0.5,
                       device=None) -> ParticleState:
     """The disk-galaxy distribution drawn on the device (counterpart of
     nbody_tpu's disk_galaxy_jax; not bit-identical to the MSVC stream)."""
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = default_device(device)
     ku = _uniform((n, 5), seed, device)
     r = 200.0 + ku[:, 0] * 1500.0
     a = ku[:, 1] * (2.0 * np.pi)
@@ -96,7 +98,7 @@ def disk_galaxy_torch(n: int, seed: int = 42, g: float = 0.5,
 def legacy_disk(n: int, seed: int = 0, device=None) -> ParticleState:
     """Distributional rebuild of the nbody_bh IC: r = u*400 disk,
     solid-rotation velocity 0.01 * r_perp, no out-of-plane velocity."""
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = default_device(device)
     ku = _uniform((n, 3), seed, device)
     a = ku[:, 0] * (2.0 * np.pi)
     r = ku[:, 1] * 400.0
@@ -110,7 +112,7 @@ def legacy_disk(n: int, seed: int = 0, device=None) -> ParticleState:
 def uniform_cube(n: int, seed: int = 0, half: float = 1000.0,
                  device=None) -> ParticleState:
     """Uniform random cube at rest, masses uniform in [1, 5)."""
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = default_device(device)
     ku = _uniform((n, 4), seed, device)
     pos = -half + ku[:, :3] * (2.0 * half)
     mass = 1.0 + ku[:, 3] * 4.0

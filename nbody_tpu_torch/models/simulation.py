@@ -4,7 +4,9 @@
 `step_barnes_hut` rebuilds everything each step, as the reference's
 simulationStep() does (nbody_v5.cu:298-325): bounding cube -> Morton
 codes -> stable sort -> adaptive cells and band structures -> the three
-force sweeps -> Euler-Cromer.  `step_direct` is the O(N^2) oracle.
+force sweeps -> Euler-Cromer; with force_fn="reference" the force is the
+per-particle rope walk over the escape-linearised tree instead.
+`step_direct` is the O(N^2) oracle.
 Particles stay in their original order across steps; the Morton
 permutation is internal to a step (and to a run of the runners below).
 
@@ -27,9 +29,10 @@ from typing import Callable, Optional
 import torch
 
 from nbody_tpu_torch.config import SimConfig
-from nbody_tpu_torch.state import ParticleState
+from nbody_tpu_torch.state import ParticleState, default_device
 from nbody_tpu_torch.ops import bbox, morton, forces, integrate as integ
 from nbody_tpu_torch.ops.cells import build_source_cells
+from nbody_tpu_torch.ops.tree import build_tree
 
 
 def sort_by_morton(pos: torch.Tensor, cfg: SimConfig):
@@ -40,22 +43,41 @@ def sort_by_morton(pos: torch.Tensor, cfg: SimConfig):
     return codes_s, perm, lo, size
 
 
-def compute_bh_acc(pos: torch.Tensor, mass: torch.Tensor,
-                   cfg: SimConfig) -> torch.Tensor:
-    """Barnes-Hut accelerations in the particles' original order."""
+def compute_bh_acc(pos: torch.Tensor, mass: torch.Tensor, cfg: SimConfig,
+                   force_fn: str = "tiled",
+                   stats: Optional[dict] = None) -> torch.Tensor:
+    """Barnes-Hut accelerations in the particles' original order.
+
+    force_fn: "tiled" (the production band decomposition, hand kernels
+    when cfg.use_pallas) or "reference" (the per-particle rope walk over
+    the escape-linearised tree; `stats` collects its iteration and
+    host-read counts)."""
+    if force_fn not in ("tiled", "reference"):
+        raise ValueError(f"unknown force_fn {force_fn}")
     n = pos.shape[0]
-    codes_s, perm, _, _ = sort_by_morton(pos, cfg)
-    pos_p, mass_p, codes_p = forces.pad_sorted(pos[perm], mass[perm], codes_s,
-                                               cfg.force_tile)
-    acc_s = forces.bh_forces_grouped(pos_p, mass_p, codes_p, cfg)[:n]
+    codes_s, perm, _, size = sort_by_morton(pos, cfg)
+    pos_s, mass_s = pos[perm], mass[perm]
+    if force_fn == "tiled":
+        pos_p, mass_p, codes_p = forces.pad_sorted(pos_s, mass_s, codes_s,
+                                                   cfg.force_tile)
+        acc_s = forces.bh_forces_grouped(pos_p, mass_p, codes_p, cfg)[:n]
+    else:
+        # the tree is 30-bit; a 63-bit key's top 30 bits are a prefix of
+        # it, so the sorted order holds for the truncated codes
+        codes30 = ((codes_s >> 33) & 0x3FFFFFFF if cfg.morton_bits == 63
+                   else codes_s)
+        tree = build_tree(codes30, pos_s, mass_s, size)
+        acc_s = forces.bh_forces_reference(pos_s, tree, cfg, stats=stats)
     out = torch.empty_like(acc_s)
     out[perm] = acc_s                   # back to the original order
     return out
 
 
-def step_barnes_hut(state: ParticleState, cfg: SimConfig) -> ParticleState:
-    return integ.integrate(state, compute_bh_acc(state.pos, state.mass, cfg),
-                           cfg)
+def step_barnes_hut(state: ParticleState, cfg: SimConfig,
+                    force_fn: str = "tiled",
+                    stats: Optional[dict] = None) -> ParticleState:
+    return integ.integrate(state, compute_bh_acc(state.pos, state.mass, cfg,
+                                                 force_fn, stats), cfg)
 
 
 def step_direct(state: ParticleState, cfg: SimConfig) -> ParticleState:
@@ -392,26 +414,23 @@ def make_cycle_runner(cfg: SimConfig, n_cycles: int, k: int):
 class Simulation:
     """Owns a config, a device and the step functions.
 
-    method: "barnes_hut" (hand kernels when cfg.use_pallas) or "direct"
-    (O(N^2)).  `device` defaults to CUDA and raises when no GPU is
-    present; pass device="cpu" to run the plain versions on the CPU.
-    `n_rebuilds` counts the adaptive runner's band rebuilds over every
-    `run_scan` call."""
+    method: "barnes_hut" (hand kernels when cfg.use_pallas),
+    "barnes_hut_reference" (the per-particle rope walk, rebuilt every
+    step) or "direct" (O(N^2)).  `device` defaults to CUDA and raises
+    when no GPU is present; pass device="cpu" to run the plain versions
+    on the CPU.  `n_rebuilds` counts the adaptive runner's band rebuilds
+    over every `run_scan` call; `walk_stats` sums the rope walk's
+    lockstep iterations and host reads over every reference step."""
 
     def __init__(self, cfg: SimConfig, method: str = "barnes_hut",
                  device=None):
-        if method not in ("barnes_hut", "direct"):
+        if method not in ("barnes_hut", "barnes_hut_reference", "direct"):
             raise ValueError(f"unknown method {method}")
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("Simulation runs on CUDA by default and "
-                                   "no CUDA device is present; pass "
-                                   "device='cpu' to run on the CPU")
-            device = "cuda"
         self.cfg = cfg
         self.method = method
-        self.device = torch.device(device)
+        self.device = default_device(device)
         self.n_rebuilds = 0
+        self.walk_stats = {"iterations": 0, "host_reads": 0}
         self._overflow_checked = method != "barnes_hut" or not cfg.check_overflow
 
     def init_state(self) -> ParticleState:
@@ -427,6 +446,9 @@ class Simulation:
     def _step(self, state: ParticleState) -> ParticleState:
         if self.method == "direct":
             return step_direct(state, self.cfg)
+        if self.method == "barnes_hut_reference":
+            return step_barnes_hut(state, self.cfg, "reference",
+                                   self.walk_stats)
         return step_barnes_hut(state, self.cfg)
 
     def step(self, state: ParticleState) -> ParticleState:

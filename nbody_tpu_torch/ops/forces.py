@@ -1,6 +1,8 @@
-"""Gravity forces: the direct O(N^2) oracle and the production Barnes-Hut
-band decomposition (port of nbody_tpu/ops/forces.py; the design rationale
-is in that module's section comment).
+"""Gravity forces: the direct O(N^2) oracle, the per-particle rope walk
+over the escape-linearised tree (the Barnes-Hut oracle) and the
+production Barnes-Hut band decomposition (port of
+nbody_tpu/ops/forces.py; the design rationale is in that module's
+section comment).
 
 Production path, per step on Morton-sorted, tile-padded particles:
 adaptive source cells -> supers (8 cells) -> super-supers (8 supers) ->
@@ -30,6 +32,7 @@ import torch
 from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.ops import bbox as _bbox
 from nbody_tpu_torch.ops.cells import build_source_cells, lcp_between
+from nbody_tpu_torch.ops.tree import LinearTree
 
 _I64 = torch.int64
 _I32 = torch.int32
@@ -96,6 +99,54 @@ def direct_forces(pos: torch.Tensor, mass: torch.Tensor, cfg: SimConfig,
                                 mass[j:j + src_block], g, soft)
         out.append(acc)
     return torch.cat(out)
+
+
+# ---------------------------------------------------------------------------
+# Barnes-Hut: the per-particle rope walk (the oracle of the tiled path)
+# ---------------------------------------------------------------------------
+
+
+def bh_forces_reference(pos_sorted: torch.Tensor, tree: LinearTree,
+                        cfg: SimConfig, block: int = 256,
+                        stats: dict | None = None) -> torch.Tensor:
+    """Stackless walk of the escape-linearised tree for every particle,
+    accept rule width / dist < theta (leaves have width 0 and are always
+    accepted; a particle's own leaf adds zero): accept -> jump to the
+    escape index, open -> step to +1.
+
+    All walks advance in lockstep, one node per iteration each.  Every
+    `block` iterations the finished walks leave the live set, and that
+    compaction is the one host read of the block.  With `stats`, adds the
+    lockstep iterations run and the host reads made to
+    stats["iterations"] and stats["host_reads"]."""
+    m_nodes = tree.n_nodes
+    g, soft, theta = cfg.g, soft_term(cfg), cfg.theta
+    n = pos_sorted.shape[0]
+    out = torch.zeros_like(pos_sorted)
+    idx = torch.arange(n, device=pos_sorted.device)
+    p, acc = pos_sorted, torch.zeros_like(pos_sorted)
+    ptr = torch.zeros(n, dtype=_I64, device=pos_sorted.device)
+    iters = reads = 0
+    while idx.numel():
+        for _ in range(block):
+            # a finished walk reads the inert last entry: mass 0 adds 0
+            q = ptr.clamp(max=m_nodes)
+            d = tree.com[q] - p
+            dist = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+                              + d[:, 2] * d[:, 2] + soft)
+            accept = tree.width[q] / dist < theta
+            f = g * tree.mass[q] / (dist * dist * dist)
+            acc = torch.where(accept[:, None], acc + f[:, None] * d, acc)
+            ptr = torch.where(accept, tree.escape[q], ptr + 1)
+        iters += block
+        out[idx] = acc
+        keep = torch.nonzero(ptr < m_nodes).squeeze(1)
+        reads += 1
+        idx, p, acc, ptr = idx[keep], p[keep], acc[keep], ptr[keep]
+    if stats is not None:
+        stats["iterations"] = stats.get("iterations", 0) + iters
+        stats["host_reads"] = stats.get("host_reads", 0) + reads
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,19 @@ from typing import NamedTuple
 import torch
 
 
+def default_device(device=None) -> torch.device:
+    """The device of an entry point: `device` as given, else CUDA, which
+    raises when no CUDA device is present.  Pass device="cpu" to run on
+    the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("nbody_tpu_torch runs on CUDA by default and no "
+                           "CUDA device is present; pass device='cpu' to "
+                           "run on the CPU")
+    return torch.device("cuda")
+
+
 class ParticleState(NamedTuple):
     """Positions, velocities, masses and last accelerations of N bodies."""
 

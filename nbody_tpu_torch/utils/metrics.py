@@ -1,6 +1,8 @@
 """Physics metrics: kinetic and potential energy, momentum, bounding box,
-the relative energy drift (the BASELINE.json physics criterion) and the
-kilostep drift protocol that measures it."""
+the relative energy drift (the BASELINE.json physics criterion), the
+kilostep drift protocol that measures it, the structure telemetry of the
+Barnes-Hut build (cell count, band statistics, overflow flags) and the
+run summary."""
 
 from __future__ import annotations
 
@@ -108,3 +110,78 @@ def drift_protocol(sim, state: ParticleState, n_steps: int = 1024,
         "seconds": t_end - t_all0 - t_log,
         "state": state,
     }
+
+
+def _sorted_padded(state: ParticleState, cfg: SimConfig):
+    """(codes, pos, mass, box_lo, box_size): Morton-sorted, tile-padded
+    inputs of the production build."""
+    from nbody_tpu_torch.models.simulation import sort_by_morton
+    from nbody_tpu_torch.ops.forces import pad_sorted
+
+    cs, perm, lo, size = sort_by_morton(state.pos, cfg)
+    ps, ms, csp = pad_sorted(state.pos[perm], state.mass[perm], cs,
+                             cfg.force_tile)
+    return csp, ps, ms, lo, size
+
+
+def cell_count(state: ParticleState, cfg: SimConfig) -> torch.Tensor:
+    """Adaptive source-cell count (a device scalar): the analog of the
+    legacy binaries' per-step "Nodes: %d" telemetry."""
+    from nbody_tpu_torch.ops.cells import build_source_cells
+
+    csp, ps, ms, lo, size = _sorted_padded(state, cfg)
+    return build_source_cells(csp, ps, ms, cfg.force_tile, cfg.g,
+                              cfg.cell_capacity, lo, size,
+                              bits=cfg.morton_bits).n_cells
+
+
+def bh_diagnostics(state: ParticleState, cfg: SimConfig) -> Dict:
+    """Structure telemetry of one production build: the adaptive cell
+    count, the band lists' mean live lengths per tile and the overflow
+    flags."""
+    from nbody_tpu_torch.ops.forces import build_bands
+
+    csp, ps, ms, _, _ = _sorted_padded(state, cfg)
+    cells, far, bands, _ = build_bands(ps, ms, csp, cfg)
+
+    def mean(x):
+        return float(x.to(torch.float32).mean())
+
+    return {
+        "n_cells": int(cells.n_cells),
+        "n_supersupers": int(far.n_supers),
+        "cell_capacity": int(cfg.cell_capacity),
+        "cell_overflow": bool(cells.overflow),
+        "g2_overflow": bool(cells.overflow_g2),
+        "ss_mean": mean(bands.ss_cnt),
+        "sup_mean": mean(bands.sup_cnt),
+        "mid_mean": mean(bands.mid_cnt),
+        "cmid_mean": mean(bands.cmid_cnt),
+        "near_mean": mean(bands.near_cnt),
+        "win_mean": mean(bands.win_cnt),
+        "ss_overflow": bool(bands.ss_overflow),
+        "sup_overflow": bool(bands.sup_overflow),
+        "mid_overflow": bool(bands.mid_overflow),
+        "cmid_overflow": bool(bands.cmid_overflow),
+        "near_overflow": bool(bands.near_overflow),
+    }
+
+
+def summary(state: ParticleState, cfg: SimConfig,
+            with_pe: bool = True) -> Dict:
+    """Kinetic energy, momentum and bounding box (and, with_pe, the
+    potential and total energy) as Python numbers."""
+    lo, hi = bounding_box(state)
+    p = momentum(state)
+    out = {
+        "ke": float(kinetic_energy(state)),
+        "px": float(p[0]),
+        "py": float(p[1]),
+        "pz": float(p[2]),
+        "bbox_min": [float(x) for x in lo],
+        "bbox_max": [float(x) for x in hi],
+    }
+    if with_pe:
+        out["pe"] = float(potential_energy(state, cfg))
+        out["e_total"] = out["ke"] + out["pe"]
+    return out

@@ -209,6 +209,10 @@ def test_port_imports_neither_jax_nor_nbody_tpu():
         "    importlib.import_module(name)\n"
         "assert 'nbody_tpu_torch.tools.prof_mxu' in names, names\n"
         "assert 'nbody_tpu_torch.ops.cuda.panel' in names, names\n"
+        "for mod in ('cli', '__main__', 'ops.tree', 'ops.compensated',\n"
+        "            'native.runtime', 'native.build', 'utils.io',\n"
+        "            'utils.profiling', 'viz.render', 'viz.viewer'):\n"
+        "    assert 'nbody_tpu_torch.' + mod in names, (mod, names)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'nbody_tpu' or m.startswith('nbody_tpu.')]\n"
@@ -226,5 +230,7 @@ def test_simulation_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Simulation(cfg)
     assert Simulation(cfg, device="cpu").device.type == "cpu"
+    assert Simulation(cfg, method="barnes_hut_reference",
+                      device="cpu").method == "barnes_hut_reference"
     with pytest.raises(ValueError):
-        Simulation(cfg, method="barnes_hut_reference", device="cpu")
+        Simulation(cfg, method="bogus", device="cpu")
