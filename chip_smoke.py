@@ -28,7 +28,8 @@ launch counts zeroed before each and read after it:
   [reference] ``Simulation(cfg, method="barnes_hut_reference")``, one step
            of the rope-walk oracle from the IC (made with no device named:
            CUDA by default), against a float64 direct sum and the
-           production step;
+           production step, and both against float64 at the 16 bodies
+           where they part most;
   [cli]    ``python -m nbody_tpu_torch run --preset v5_bench`` as a
            subprocess (its dump and checkpoint read back, the checkpoint
            dumped again byte for byte), then ``info`` and ``bench`` in
@@ -37,7 +38,18 @@ launch counts zeroed before each and read after it:
            rendered in both modes on the card and held against the CPU's
            frame;
   [view]   the live viewer at v5 over HTTP on 127.0.0.1: page, JPEG
-           frame, stats, a camera drag, then frames/s over 10 s.
+           frame, stats, a camera drag, then frames/s over 10 s;
+  [ensemble] 4 members of bh_100k through models.ensemble's
+           make_ensemble_step, each bit-equal to step_barnes_hut alone;
+  [shard]  the sharded_4m preset (N = 4,000,000 in 8 slabs) on 8 ranks
+           that share the card (parallel/launch.spawn, backend gloo):
+           16 steps of make_sharded_adaptive_runner against the
+           single-process make_adaptive_runner on the same IC and pads
+           (equal rebuild counts, pos and vel within rtol 1e-4, atol
+           1e-3), per-rank times, host reads, collective bytes and
+           paths, and the three force kernels on rank 0's slab (near_span
+           also on the halo + fetch sources with rebased windows)
+           against their plain versions.
 Every failing check raises (non-zero exit).  The line before the last is
 one JSON object per kernel ({"kernels": [...]}, times in ms on this
 card), preceded by the card's name and power limit; the last line is
@@ -47,6 +59,7 @@ Exits non-zero without a result when no CUDA device is present.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io as io_module
 import json
@@ -173,11 +186,13 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return n
 
 
-def bounds_ms(cfg, ps, ss, bands, tables):
+def bounds_ms(cfg, ps, ss, bands, tables, n_src=None):
     """Least time for each kernel's work on this run's data: the larger of
     FP32 operations over the FP32 peak and bytes (inputs read once,
-    outputs written once) over the memory rate; (ms, bound_by)."""
+    outputs written once) over the memory rate; (ms, bound_by).  n_src:
+    the near sweep's source rows (default: the targets)."""
     n, b = ps.shape[0], cfg.force_tile
+    n_src = n if n_src is None else n_src
     t = n // b
     n_live = int(ss.n_supers)
     live_rows = (bands.near_cnt.to(torch.int64)
@@ -188,7 +203,7 @@ def bounds_ms(cfg, ps, ss, bands, tables):
     work = {
         "far_sweep": (n * n_live, 24 * n + 16 * n_live + 4),
         "table_sweep": (b * rows, 24 * n + 16 * rows + 8 * t),
-        "near_span": (b * lanes, 24 * n + 16 * n + 20 * windows + 4 * t),
+        "near_span": (b * lanes, 24 * n + 16 * n_src + 20 * windows + 4 * t),
     }
     out = {}
     for k, (pairs, nbytes) in work.items():
@@ -377,18 +392,25 @@ def band_report(label, cfg, cells, ss, bands):
     log(f"[{label}] overflow {flags}")
 
 
+def direct_f64(state, idx, cfg):
+    """float64 direct-sum accelerations of bodies `idx` of `state` from
+    every body."""
+    tgt = state.pos[idx].double()
+    src, m = state.pos.double(), state.mass.double()
+    ref = torch.zeros_like(tgt)
+    for j in range(0, state.n, 16384):
+        ref += forces._panel_accel(tgt, src[j:j + 16384], m[j:j + 16384],
+                                   cfg.g, forces.soft_term(cfg))
+    return ref
+
+
 def direct_check(prev, acc, cfg, n_targets=4096, seed=7):
     """Median and maximum relative error of `acc` at n_targets random
     bodies against a float64 direct sum over all sources (the bound of
     tests/test_forces.py's grouped-vs-direct test: 2% on the median)."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     idx = torch.randperm(prev.n, generator=gen, device=DEVICE)[:n_targets]
-    tgt = prev.pos[idx].double()
-    src, m = prev.pos.double(), prev.mass.double()
-    ref = torch.zeros_like(tgt)
-    for j in range(0, prev.n, 16384):
-        ref += forces._panel_accel(tgt, src[j:j + 16384], m[j:j + 16384],
-                                   cfg.g, forces.soft_term(cfg))
+    ref = direct_f64(prev, idx, cfg)
     ref_norm = ref.norm(dim=1)
     err = (acc[idx].double() - ref).norm(dim=1) / ref_norm
     worst = int(err.argmax())
@@ -578,7 +600,8 @@ def probe_phase():
         if not rel <= PANEL_BOUND:
             raise RuntimeError(f"{key}: error {rel} > {PANEL_BOUND}")
         rows.append({
-            "name": key, "route": "cuda", "source": PANEL_SOURCE,
+            "name": key, "path": "probe", "route": "cuda",
+            "source": PANEL_SOURCE,
             "replaces": PANEL_REPLACES, "launches": launches[key],
             "max_abs_err": abs_err, "ms": res["ms"][name], "plain_ms": p_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
@@ -592,6 +615,7 @@ def probe_phase():
 # --- this slice's entry points: the rope-walk oracle, the command line,
 # --- the renderer and the live viewer
 
+REFERENCE_WORST = 16       # bodies summed directly in float64
 CLI_STEPS = 64
 RENDER_STEPS = 16
 VIEW_SECONDS = 10.0
@@ -646,7 +670,34 @@ def reference_phase(cfg, ic):
     log(f"[reference] vs the production barnes_hut step on the same state: "
         f"median rel diff {float(rel.median()):.3e}, max "
         f"{float(rel.max()):.3e}")
-    return {"ms": ms, **st}
+    # which path is off where they part most: both against float64, as a
+    # relative error and as an absolute one over the median |a| (the rel
+    # diff above divides by the production |a|, small at these bodies)
+    worst = torch.topk(rel, REFERENCE_WORST).indices
+    ref = direct_f64(ic, worst, cfg)
+    ref_norm = ref.norm(dim=1)
+    scale = float(prod.acc.norm(dim=1).median())
+    err = {name: (a[worst].double() - ref).norm(dim=1)
+           for name, a in (("oracle", out.acc), ("production", prod.acc))}
+    for i in range(REFERENCE_WORST):
+        log(f"[reference] body {int(worst[i])}: |a64| {float(ref_norm[i]):.4e}"
+            f" ({float(ref_norm[i]) / scale:.4f} of the median |a|), oracle "
+            f"vs production {float(rel[worst[i]]):.4e}; error vs float64 "
+            f"(relative; absolute / median |a|): oracle "
+            f"{float(err['oracle'][i] / ref_norm[i]):.4e}; "
+            f"{float(err['oracle'][i]) / scale:.4e}, production "
+            f"{float(err['production'][i] / ref_norm[i]):.4e}; "
+            f"{float(err['production'][i]) / scale:.4e}")
+    summary = {name: {"median_rel": float((e / ref_norm).median()),
+                      "max_rel": float((e / ref_norm).max()),
+                      "max_abs_over_median_a": float(e.max()) / scale}
+               for name, e in err.items()}
+    off = max(summary, key=lambda k: summary[k]["median_rel"])
+    log(f"[reference] at the {REFERENCE_WORST} bodies where the paths part "
+        f"most (median |a| {scale:.4e}), error vs float64: "
+        f"{json.dumps(summary)}; the path further off: {off}")
+    return {"ms": ms, **st, "worst_bodies": [int(i) for i in worst],
+            "worst_error": summary, "worst_path_off": off}
 
 
 def cli_phase():
@@ -847,6 +898,352 @@ def view_phase(cfg, state):
     return res
 
 
+# --- this slice's paths: the multi-device runner and the ensemble
+
+SHARD_BACKEND = "gloo"     # the ranks share the one card
+SHARD_STEPS = 16
+SHARD_TIMEOUT = 900        # seconds for the whole spawned run
+RUNNER_TOL = {"rtol": 1e-4, "atol": 1e-3}    # tests/test_shard.py's bound
+ENSEMBLE_MEMBERS = 4
+
+
+def shard_rank(mesh, cfg, n_steps):
+    """One rank of [shard] (every rank runs it, SPMD): the IC from the
+    seed, this rank's slab, make_sharded_adaptive_runner with the launch
+    counts and collective bytes zeroed before it; then the same schedule
+    stepped by hand, each step timed with its host syncs and bytes; then,
+    on rank 0 (the others wait), the three force kernels on its slab's
+    inputs after the last rebuild against their plain versions."""
+    from nbody_tpu_torch.parallel import comm, shard
+
+    def dev_sync():
+        torch.cuda.synchronize(mesh.device)
+
+    slab = shard.shard_state(make_initial_state(cfg, device=mesh.device),
+                             mesh)
+    kern.reset_launches()
+    mesh.stats.clear()
+    dev_sync()
+    t0 = time.perf_counter()
+    out, n_rb = shard.make_sharded_adaptive_runner(
+        cfg, mesh, n_steps, return_stats=True)(slab)
+    dev_sync()
+    res = {"rank": mesh.rank, "wall_s": time.perf_counter() - t0,
+           "rebuilds": n_rb, "launches": dict(kern.LAUNCHES),
+           "stats": dict(mesh.stats),
+           "finite": bool(torch.isfinite(out.pos).all()
+                          and torch.isfinite(out.vel).all())}
+    if mesh.rank == 0:
+        res["pos"], res["vel"] = out.pos.cpu(), out.vel.cpu()
+    del out
+
+    loop = shard._ShardedAdaptiveLoop(cfg, mesh,
+                                      *shard._slabs_of(slab, cfg, mesh))
+    steps = []
+    for _ in range(n_steps):
+        rb0, before = loop.n_rebuilds, collections.Counter(mesh.stats)
+        dev_sync()
+        t0 = time.perf_counter()
+        _, syncs = count_syncs(loop.step)
+        dev_sync()
+        ms = 1e3 * (time.perf_counter() - t0)
+        delta = collections.Counter(mesh.stats)
+        delta.subtract(before)
+        rebuilt = loop.n_rebuilds > rb0
+        steps.append({"rebuild": rebuilt, "ms": ms, "syncs": syncs,
+                      "host_reads": syncs - delta["staged_syncs"],
+                      "s_valid": loop.left + 1 if rebuilt else None,
+                      "bytes": {k: v for k, v in delta.items() if v}})
+    res.update(steps=steps, host_reads=loop.host_reads,
+               paths=dict(loop.paths))
+
+    res["rebuild_sums"] = loop.rebuild_sums
+    # the near sweep's sources as the path builds them (collectives: all)
+    _, ss, bands, tables, _ = loop.built
+    glob, p, mass = loop.glob, loop.pos, loop.mass
+    if glob.near_fast:
+        p_src = shard._near_source_rows(p, glob, cfg, mesh)
+        m_src, wf = glob.mass_src, glob.wf_remap
+    else:
+        p_src = comm.all_gather(p, mesh)
+        m_src, wf = glob.mass_s, bands.win_first
+    # the halo + fetch inputs (rebased windows) with a fetch cap that
+    # holds for this state, whichever path the run took
+    m = p.shape[0]
+    h = shard._near_halo_rows(m, cfg)
+    needed = comm.all_gather(
+        shard._near_fetch_plan(bands, m, h, cfg, mesh)[0].reshape(1), mesh)
+    fetch_cap = -(-int(needed.max()) // 128) * 128
+    _, starts, wf_fast = shard._near_fetch_plan(
+        bands, m, h, cfg.replace(near_fetch_cap=fetch_cap), mesh)
+    reqs = comm.all_gather(starts, mesh).reshape(mesh.size, -1)
+    p_fast = torch.cat([shard._halo_ext(p, h, mesh),
+                        shard._fetch_windows(p, reqs, m, mesh)])
+    m_fast = torch.cat([shard._halo_ext(mass, h, mesh),
+                        shard._fetch_windows(mass, reqs, m, mesh)])
+    p_all = comm.all_gather(p, mesh)
+    if mesh.rank == 0:
+        b = bands
+        calls = {
+            "far_sweep": (lambda: kern.far_sweep(p, ss, cfg),
+                          lambda: forces.far_sweep_torch(p, ss, cfg)),
+            "table_sweep": (lambda: kern.table_sweep(p, tables, cfg),
+                            lambda: forces.table_sweep_torch(p, tables, cfg)),
+            "near_span": (lambda: kern.near_span(p, p_src, m_src, wf,
+                                                 b.win_mask, b.win_cnt, cfg),
+                          lambda: forces.near_correction_torch(
+                              p, p_src, m_src, wf, b.win_mask, b.win_cnt,
+                              cfg)),
+        }
+        errs = compare(calls)
+        bnd = bounds_ms(cfg, p, ss, bands, tables, n_src=p_src.shape[0])
+        res["kernels"] = {
+            k: {"rel_err": errs[k][0], "max_abs_err": errs[k][1],
+                "ms": event_ms(calls[k][0], 10), "plain_ms": event_ms(
+                    calls[k][1], 2), "bound_ms": bnd[k][0],
+                "bound_by": bnd[k][1]} for k in calls}
+        # near_span on the halo + fetch sources and rebased windows:
+        # against its plain version, and against itself on the gather
+        fast = {"near_span": (
+            lambda: kern.near_span(p, p_fast, m_fast, wf_fast, b.win_mask,
+                                   b.win_cnt, cfg),
+            lambda: forces.near_correction_torch(
+                p, p_fast, m_fast, wf_fast, b.win_mask, b.win_cnt, cfg))}
+        rel, abs_err = compare(fast)["near_span"]
+        gathered = kern.near_span(p, p_all, glob.mass_s, b.win_first,
+                                  b.win_mask, b.win_cnt, cfg)
+        res["near_fast"] = {
+            "plan_holds": int(needed.max()) <= fetch_cap,
+            "fetch_cap": fetch_cap,
+            "far_windows_per_rank": [int(x) for x in needed],
+            "n_src": p_fast.shape[0], "rel_err": rel, "max_abs_err": abs_err,
+            "ms": event_ms(fast["near_span"][0], 10),
+            "bitwise_as_gather": bool(torch.equal(fast["near_span"][0](),
+                                                  gathered))}
+        res["slab"] = {"targets": p.shape[0], "near_sources": p_src.shape[0],
+                       "tiles": b.win_cnt.shape[0],
+                       "near_windows": int(b.win_cnt.sum()),
+                       "n_ss_live": int(ss.n_supers)}
+    # the other ranks wait here while rank 0 times its kernels
+    comm.psum(torch.zeros(1, device=mesh.device), mesh)
+    return res
+
+
+def runner_diff(got_pos, got_vel, want_pos, want_vel):
+    """Max |got - want| and the max excess over RUNNER_TOL (<= 0 passes)
+    of positions and velocities."""
+    out = {}
+    for name, g, w in (("pos", got_pos, want_pos), ("vel", got_vel, want_vel)):
+        d = (g - w).abs()
+        allow = RUNNER_TOL["atol"] + RUNNER_TOL["rtol"] * w.abs()
+        out[name] = (float(d.max()), float((d - allow).max()))
+    return out
+
+
+def first_parting(want_steps, got_steps):
+    """The first step whose rebuild flag differs, or None."""
+    for i, (a, b) in enumerate(zip(want_steps, got_steps)):
+        if a != b:
+            return i
+    return None
+
+
+def shard_phase():
+    """sharded_4m unchanged (N = 4M, 8 slabs) through
+    make_sharded_adaptive_runner on 8 gloo ranks sharing the card, held
+    against the single-process adaptive runner on the same IC; per-rank
+    times, host reads, collective bytes and paths; the force kernels on
+    rank 0's slab.  Returns (the kernel rows, a summary)."""
+    from nbody_tpu_torch.parallel import launch
+    from nbody_tpu_torch.state import ParticleState
+
+    cfg = PRESETS["sharded_4m"]
+    d = cfg.mesh_shape[0]
+    ic = make_initial_state(cfg, device=DEVICE)
+    # the sharded runner pads to a multiple of D * force_tile with massless
+    # clones; the single-process run takes the same padded system
+    pos, vel, mass, acc, _ = simulation._pad_cycle_state(
+        ic, d * cfg.force_tile)
+    padded = ParticleState(pos, vel, mass, acc)
+    n_pads = padded.n - ic.n
+
+    def single(state):
+        kern.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        out, rb = simulation.make_adaptive_runner(
+            cfg, SHARD_STEPS, return_stats=True)(state)
+        sync()
+        return (out, rb, 1e3 * (time.perf_counter() - t0) / SHARD_STEPS,
+                torch.cuda.max_memory_allocated(), dict(kern.LAUNCHES))
+
+    want, want_rb, ms_step, peak, launches1 = single(padded)
+    check_finite("shard single process", want)
+    log(f"[shard single] sharded_4m's config on one process (bh_4m's shape), "
+        f"the IC plus the sharded runner's {n_pads} massless pads "
+        f"(n = {padded.n}): {SHARD_STEPS} steps of make_adaptive_runner, "
+        f"{ms_step:.1f} ms/step, {want_rb} rebuilds, peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches1}")
+    want_pos, want_vel = want.pos[:ic.n].cpu(), want.vel[:ic.n].cpu()
+    alone, alone_rb, alone_ms, alone_peak, _ = single(ic)
+    log(f"[shard single] the IC alone (n = {ic.n}, {ic.n % cfg.force_tile} "
+        f"rows past a tile, padded to one): {alone_ms:.1f} ms/step, "
+        f"{alone_rb} rebuilds, peak memory {alone_peak / 2**30:.2f} GiB")
+    alone_pos, alone_vel = alone.pos.cpu(), alone.vel.cpu()
+    del want, alone, padded, ic, pos, vel, mass, acc
+    torch.cuda.empty_cache()
+
+    log(f"[shard] {d} ranks on one card, backend {SHARD_BACKEND!r} "
+        f"(collectives staged through pinned host buffers), "
+        f"parallel/launch.spawn, timeout {SHARD_TIMEOUT} s")
+    t0 = time.perf_counter()
+    ranks = launch.spawn(shard_rank, d, backend=SHARD_BACKEND, device="cuda",
+                         timeout=SHARD_TIMEOUT, args=(cfg, SHARD_STEPS))
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    log(f"[shard] spawn to last result {spawn_s:.1f} s; runner wall per rank "
+        f"(s): {[round(r['wall_s'], 2) for r in ranks]}")
+
+    # schedule and trajectory against the single process
+    rbs = {r["rebuilds"] for r in ranks}
+    diff = runner_diff(r0["pos"], r0["vel"], want_pos, want_vel)
+    info = runner_diff(r0["pos"], r0["vel"], alone_pos, alone_vel)
+    log(f"[shard] rebuilds: sharded {sorted(rbs)}, single process {want_rb}; "
+        f"vs the single process (max |diff|, max excess over rtol 1e-4 "
+        f"atol 1e-3): {diff}")
+    log(f"[shard] vs the single process on the unpadded IC, another system "
+        f"(not gated): {info}")
+    if rbs != {want_rb} or want_rb < 2:
+        sloop = simulation._AdaptiveLoop(cfg, make_initial_state(
+            cfg, device=DEVICE))
+        flags = []
+        for _ in range(SHARD_STEPS):
+            rb0 = sloop.n_rebuilds
+            sloop.step()
+            flags.append(sloop.n_rebuilds > rb0)
+        part = first_parting(flags, [s["rebuild"] for s in r0["steps"]])
+        raise RuntimeError(f"[shard] rebuild schedules: sharded {sorted(rbs)}"
+                           f", single {want_rb} (at least 2 needed); they "
+                           f"part at step {part}")
+    if not all(r["finite"] for r in ranks) or max(
+            v[1] for v in diff.values()) > 0:
+        raise RuntimeError(f"[shard] sharded runner off the single process: "
+                           f"{diff}")
+
+    # per rank: times, host reads, bytes, paths
+    for r in ranks:
+        rb = [s for s in r["steps"] if s["rebuild"]]
+        inner = [s for s in r["steps"] if not s["rebuild"]]
+        reads_rb = [s["host_reads"] for s in rb]
+        reads_in = [s["host_reads"] for s in inner]
+
+        def per(steps, key):
+            tot = collections.Counter()
+            for s in steps:
+                tot.update(s["bytes"])
+            return {k: round(v / max(len(steps), 1))
+                    for k, v in sorted(tot.items()) if not k.endswith("calls")
+                    and k != key}
+
+        log(f"[shard rank {r['rank']}] rebuild ms "
+            f"{[round(s['ms'], 1) for s in rb]}, inner-step ms mean "
+            f"{np.mean([s['ms'] for s in inner]):.1f} max "
+            f"{max(s['ms'] for s in inner):.1f}; host reads per rebuild "
+            f"{reads_rb} (loop count {r['host_reads']}), per inner step max "
+            f"{max(reads_in)}; staged syncs per rebuild "
+            f"{[s['syncs'] - s['host_reads'] for s in rb]}, per inner step "
+            f"{inner[0]['syncs'] - inner[0]['host_reads']}; paths "
+            f"{r['paths']}; launches {r['launches']}")
+        log(f"[shard rank {r['rank']}] bytes per rebuild step "
+            f"{per(rb, 'staged_syncs')}; per inner step "
+            f"{per(inner, 'staged_syncs')} (staged: the card-host copies)")
+        if max(reads_in) != 0 or max(reads_rb) > 1:
+            raise RuntimeError(f"[shard rank {r['rank']}] host reads: "
+                               f"rebuilds {reads_rb}, inner {reads_in}")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ("far_sweep", "table_sweep", "near_span")}
+    check_launches("shard", launches)
+    log(f"[shard] rank 0's slab after the last rebuild: {r0['slab']}; "
+        f"s_valid per rebuild "
+        f"{[s['s_valid'] for s in r0['steps'] if s['rebuild']]}; per rebuild "
+        f"(rows outside the reslab halo, ranks over the fetch cap, ranks "
+        f"overflowing a band cap), summed over the ranks: "
+        f"{r0['rebuild_sums']}")
+    nf = r0["near_fast"]
+    log(f"[kernels shard] near_span on the halo + fetch sources with rebased "
+        f"windows (n_src {nf['n_src']}, fetch cap {nf['fetch_cap']} for "
+        f"{nf['far_windows_per_rank']} distinct out-of-halo windows per rank;"
+        f" the preset's cap is {cfg.near_fetch_cap}): rel_err "
+        f"{nf['rel_err']:.3e}, max abs err {nf['max_abs_err']:.3e}, "
+        f"{nf['ms']:.3f} ms; bitwise equal to the gather path: "
+        f"{nf['bitwise_as_gather']}")
+    if not (nf["plan_holds"] and nf["rel_err"] <= BOUNDS["near_span"]
+            and nf["bitwise_as_gather"]):
+        raise RuntimeError(f"[shard] near_span on the halo + fetch inputs: "
+                           f"{nf}")
+    rows = []
+    for k, kr in r0["kernels"].items():
+        log(f"[kernels shard] {k}: rel_err {kr['rel_err']:.3e} (bound "
+            f"{BOUNDS[k]:.0e}), max abs err {kr['max_abs_err']:.3e}; kernel "
+            f"{kr['ms']:.3f} ms, plain {kr['plain_ms']:.3f} ms, bound "
+            f"{kr['bound_ms']:.3f} ms ({kr['bound_by']}, "
+            f"{100 * kr['bound_ms'] / kr['ms']:.1f}% of it reached)")
+        if not kr["rel_err"] <= BOUNDS[k]:
+            raise RuntimeError(f"{k} on the sharded slab: error "
+                               f"{kr['rel_err']} > {BOUNDS[k]}")
+        rows.append({
+            "name": k, "path": "shard", "route": "cuda", "source": SOURCE[k],
+            "replaces": REPLACES[k], "launches": launches[k],
+            "launches_per_rank": [r["launches"][k] for r in ranks],
+            "max_abs_err": kr["max_abs_err"], "ms": kr["ms"],
+            "plain_ms": kr["plain_ms"], "bound_ms": kr["bound_ms"],
+            "bound_by": kr["bound_by"], "library_ms": None,
+            "rel_err": kr["rel_err"]})
+        if k == "near_span":
+            rows[-1].update(n_src=r0["slab"]["near_sources"],
+                            ms_halo_fetch=nf["ms"],
+                            rel_err_halo_fetch=nf["rel_err"],
+                            n_src_halo_fetch=nf["n_src"])
+    summary = {"ranks": d, "backend": SHARD_BACKEND, "steps": SHARD_STEPS,
+               "rebuilds": want_rb, "spawn_s": spawn_s,
+               "single_ms_per_step": ms_step, "single_peak_gib": peak / 2**30,
+               "diff": diff, "paths": r0["paths"]}
+    return rows, summary
+
+
+def ensemble_phase():
+    """ENSEMBLE_MEMBERS members of bh_100k (seeds 42, 43, ...) through
+    make_ensemble_step for one step, each member bit-equal to
+    step_barnes_hut on that member alone; returns its launches."""
+    from nbody_tpu_torch.models import ensemble
+
+    cfg = PRESETS["bh_100k"]
+    members = [make_initial_state(cfg.replace(seed=cfg.seed + e),
+                                  device=DEVICE)
+               for e in range(ENSEMBLE_MEMBERS)]
+    batched = ensemble.stack_states(members)
+    kern.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = ensemble.make_ensemble_step(cfg)(batched)
+    sync()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = launches_since_reset("ensemble")
+    same = []
+    for e, member in enumerate(members):
+        alone = simulation.step_barnes_hut(member, cfg)
+        same.append(all(torch.equal(x[e], y) for x, y in zip(out, alone)))
+    log(f"[ensemble] bh_100k x {ENSEMBLE_MEMBERS} members (n={cfg.n} each): "
+        f"one make_ensemble_step {ms:.1f} ms; each member bit-equal to "
+        f"step_barnes_hut alone: {same}")
+    if not all(same):
+        raise RuntimeError(f"[ensemble] members differ from the lone step: "
+                           f"{same}")
+    check_finite("ensemble", out)
+    return {"ms": ms, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -932,7 +1329,7 @@ def main() -> int:
                                f"{BOUNDS[k]}")
         k_ms, p_ms = event_ms(kfn, 20), event_ms(pfn, 2)
         rows.append({
-            "name": k, "route": "cuda", "source": SOURCE[k],
+            "name": k, "path": "main", "route": "cuda", "source": SOURCE[k],
             "replaces": REPLACES[k], "launches": launches[k],
             "max_abs_err": abs_err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bnd[k][0], "bound_by": bnd[k][1], "library_ms": None,
@@ -959,18 +1356,25 @@ def main() -> int:
     cli_res = cli_phase()
     vcfg, vstate, render_res = render_phase()
     view_res = view_phase(vcfg, vstate)
+    del vstate
+    ens_res = ensemble_phase()
+    torch.cuda.empty_cache()
+    shard_rows, shard_res = shard_phase()
     for row in rows[:3]:
         k = row["name"]
         row.update(launches_cli_run=cli_res["launches_run"][k],
                    launches_cli_bench=cli_res["launches_bench"][k],
                    launches_render=render_res["launches"][k],
-                   launches_view=view_res["launches"][k])
+                   launches_view=view_res["launches"][k],
+                   launches_ensemble=ens_res["launches"][k])
+    rows += shard_rows
     log("[slice] " + json.dumps({
         "reference": ref,
         "cli": {k: v for k, v in cli_res.items()
                 if not k.startswith("launches")},
         "render_ms": {m: render_res[f"{m}_ms"] for m in RENDER_BOUNDS},
-        "view": {k: v for k, v in view_res.items() if k != "launches"}}))
+        "view": {k: v for k, v in view_res.items() if k != "launches"},
+        "ensemble_ms": ens_res["ms"], "shard": shard_res}))
 
     print(json.dumps({"kernels": rows}))
     print(smi)

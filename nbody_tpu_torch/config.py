@@ -10,8 +10,10 @@ the three force sweeps run as the CUDA kernels of ``ops/cuda/forces.py``
 (``False`` asks for their plain PyTorch versions).  The band-reuse
 runners read ``rebuild_every``, ``adaptive_rebuild``, ``hold_farmid`` and
 the skin and hold knobs and the renderer its camera and frame size; the
-fields of sharding are carried for parity and read by nothing in the
-port yet.
+fields of sharding are read by ``parallel/shard.py``: ``mesh_shape``
+names the slab count of a preset (the mesh itself comes from the
+caller's ranks), ``near_halo_div`` sizes the per-step near halo and
+``near_fetch_cap`` the near windows fetched from distant slabs.
 """
 
 from __future__ import annotations

@@ -186,6 +186,21 @@ def _norms(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((x * x).sum(dim=1))
 
 
+def k_next_of(k_env: torch.Tensor, s_valid: torch.Tensor,
+              overflowed: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """The next envelope horizon, ~2 s_valid (calm epochs grow back to K
+    in a few rebuilds), halved instead when this build's skins overflowed
+    any band cap (a standing theta violation for the overflowed pairs)."""
+    return torch.where(overflowed, torch.clamp(k_env // 2, min=1),
+                       torch.clamp(2 * s_valid, 1, cfg.rebuild_every))
+
+
+def bands_overflowed(bands) -> torch.Tensor:
+    """Any band list of `bands` past its cap (a device bool)."""
+    return (bands.ss_overflow | bands.sup_overflow | bands.mid_overflow
+            | bands.cmid_overflow | bands.near_overflow)
+
+
 def _adaptive_rebuild_fn(cfg: SimConfig):
     """One adaptive band rebuild: Morton re-sort, the permutation applied
     to every per-particle field (and to the held far+mid acceleration
@@ -196,12 +211,8 @@ def _adaptive_rebuild_fn(cfg: SimConfig):
     (fields, built, (s_valid, k_next)) with fields = (pos, vel, mass,
     acc, orig, afm) in the new order (afm None when not given), built =
     (cells, supers, bands, tables, rctx), build_bands' four results and
-    what refresh_farmid needs, and the two device scalars:
-      * s_valid: the validity horizon;
-      * k_next: the next envelope horizon, ~2 s_valid (calm epochs grow
-        back to K in a few rebuilds), halved instead when this build's
-        skins overflowed any band cap (a standing theta violation for
-        the overflowed pairs)."""
+    what refresh_farmid needs, and two device scalars: the validity
+    horizon and the next envelope horizon (k_next_of)."""
 
     def rebuild(pos, vel, mass, acc, orig, k_env, afm=None):
         codes_s, perm, box_lo, size = sort_by_morton(pos, cfg)
@@ -215,11 +226,7 @@ def _adaptive_rebuild_fn(cfg: SimConfig):
         cells, supers, bands, tables = forces.build_bands(pos, mass, codes_s,
                                                           cfg, drift=drift)
         s_valid = validity_horizon(v, a, drift, cfg)
-        overflowed = (bands.ss_overflow | bands.sup_overflow
-                      | bands.mid_overflow | bands.cmid_overflow
-                      | bands.near_overflow)
-        k_next = torch.where(overflowed, torch.clamp(k_env // 2, min=1),
-                             torch.clamp(2 * s_valid, 1, cfg.rebuild_every))
+        k_next = k_next_of(k_env, s_valid, bands_overflowed(bands), cfg)
         # what refresh_farmid needs to recompute moments at this cut
         rctx = (codes_s, drift, box_lo, size)
         return ((pos, vel, mass, acc, orig, afm),
@@ -245,19 +252,29 @@ class _AdaptiveLoop:
     with the rebuild and only its age (limit r_eff) refreshes it.  With
     cfg.refresh_moments a refresh that is not the first step after a
     rebuild recomputes every source moment from live positions at the
-    frozen cut (forces.refresh_farmid)."""
+    frozen cut (forces.refresh_farmid).
+
+    The schedule is shared with the multi-device loop
+    (parallel/shard.py), which overrides the rebuild (`_build`), the
+    moment refresh, the near band and the snapshot."""
 
     def __init__(self, cfg: SimConfig, state: ParticleState):
+        self._start(cfg, state.n, state.mass,
+                    *_pad_cycle_state(state, cfg.force_tile))
+        self._rebuild_fn = _adaptive_rebuild_fn(cfg)
+
+    def _start(self, cfg: SimConfig, n: int, mass0, pos, vel, mass, acc,
+               orig) -> None:
+        """The schedule's state over the (padded) rows it integrates."""
         self.cfg = cfg
         self.r = max(1, cfg.hold_farmid)
         self.span = cfg.farmid_span_rebuilds
-        self._rebuild_fn = _adaptive_rebuild_fn(cfg)
-        self.n = state.n
-        self.mass0 = state.mass
-        (self.pos, self.vel, self.mass, self.acc,
-         self.orig) = _pad_cycle_state(state, cfg.force_tile)
+        self.n = n
+        self.mass0 = mass0
+        self.pos, self.vel, self.mass, self.acc, self.orig = (pos, vel, mass,
+                                                              acc, orig)
         # a fill, not a copy from the host (which would synchronize)
-        self.k_env = torch.full((), cfg.rebuild_every, device=state.device)
+        self.k_env = torch.full((), cfg.rebuild_every, device=pos.device)
         self.afm = torch.zeros_like(self.pos)
         # span: the age starts at R, so the very first step refreshes
         self.afm_age = self.r if self.span else 0
@@ -267,24 +284,44 @@ class _AdaptiveLoop:
         self.n_rebuilds = 0
         self.built = None
 
-    def rebuild(self) -> None:
+    def _build(self) -> int:
+        """Rebuild: the fields in the new order, self.built, self.k_env;
+        returns the validity horizon (the one host read)."""
         fields, self.built, (s_valid_t, self.k_env) = self._rebuild_fn(
             self.pos, self.vel, self.mass, self.acc, self.orig, self.k_env,
             self.afm if self.span else None)
         self.pos, self.vel, self.mass, self.acc, self.orig, afm = fields
         if self.span:
             self.afm = afm
-        s_valid = int(s_valid_t.item())            # the one host read
+        return int(s_valid_t.item())
+
+    def rebuild(self) -> None:
+        s_valid = self._build()
         self.left, self.j = s_valid, 0
         self.n_rebuilds += 1
         if self.span and self.cfg.span_age_mult > 0:
             self.r_eff = min(max(self.cfg.span_age_mult * s_valid, 1), self.r)
 
+    def _farmid(self, p_mid: torch.Tensor) -> torch.Tensor:
+        _, supers, _, tables, _ = self.built
+        return forces.apply_farmid(p_mid, supers, tables, self.cfg)
+
+    def _farmid_refreshed(self, p_mid: torch.Tensor) -> torch.Tensor:
+        """Far+mid with every source moment recomputed from the live
+        positions at the frozen cut."""
+        _, _, bands, _, rctx = self.built
+        return forces.refresh_farmid(self.pos, self.mass, *rctx, bands,
+                                     self.cfg, tgt_pos=p_mid)
+
+    def _near(self) -> torch.Tensor:
+        bands = self.built[2]
+        return forces.apply_near(self.pos, self.pos, self.mass, bands,
+                                 self.cfg)
+
     def step(self) -> None:
         cfg = self.cfg
         if self.left <= 0:
             self.rebuild()
-        _, supers, bands, tables, rctx = self.built
         if self.span:
             refresh = self.afm_age >= self.r_eff
         else:
@@ -293,15 +330,13 @@ class _AdaptiveLoop:
             tau = 0.5 * (self.r_eff - 1) * cfg.dt
             p_mid = hold_predict_pos(self.pos, self.vel, self.acc, tau, cfg)
             if cfg.refresh_moments and self.j > 0:
-                self.afm = forces.refresh_farmid(self.pos, self.mass, *rctx,
-                                                 bands, cfg, tgt_pos=p_mid)
+                self.afm = self._farmid_refreshed(p_mid)
             else:
-                self.afm = forces.apply_farmid(p_mid, supers, tables, cfg)
+                self.afm = self._farmid(p_mid)
             self.afm_age = 1
         else:
             self.afm_age += 1
-        a = self.afm + forces.apply_near(self.pos, self.pos, self.mass, bands,
-                                         cfg)
+        a = self.afm + self._near()
         st = integ.integrate(ParticleState(pos=self.pos, vel=self.vel,
                                            mass=self.mass, acc=a), a, cfg)
         self.pos, self.vel, self.acc = st.pos, st.vel, st.acc

@@ -5,7 +5,10 @@ particle the shallowest depth whose Morton cell holds <= B particles,
 computed from two sliding-window extrema over the adjacent-LCP array;
 cells, their depth+1 children and depth+2 grandchildren are contiguous
 runs of the sorted order, compacted to static capacities, with monopoles
-from prefix sums and analytic (lattice) geometry.
+from prefix sums and analytic (lattice) geometry.  The multi-device path
+builds each shard's cells from a window of the sorted arrays
+(`build_source_cells_window`, with the one cross-shard carry from
+`last_bmax_boundary`); both builds share their segment statistics.
 
 Differences from the JAX build, none of which changes an integer output:
 
@@ -120,10 +123,18 @@ def _block_cum(x: torch.Tensor, w: int, reverse: bool, fn) -> torch.Tensor:
     return fn(x, dim=1).values.reshape(-1)
 
 
-def _sliding_cut_depth(lcp: torch.Tensor, b: int, max_depth: int) -> torch.Tensor:
+def _sliding_cut_depth(lcp: torch.Tensor, b: int, max_depth: int,
+                       x_off: Optional[int] = None,
+                       n_total: Optional[int] = None) -> torch.Tensor:
     """UNCLAMPED cut depth per particle: cut(i) = floor(L(i)/3) + 1 with
     L(i) = max_{s in [i-b, i]} min(lcp[s+1 .. s+b]), both sliding extrema
-    by the prefix/suffix block decomposition (nbody_tpu docstring)."""
+    by the prefix/suffix block decomposition (nbody_tpu docstring).
+
+    Windowed use (build_source_cells_window): `lcp` covers a window of a
+    longer array whose row 0 is global row `x_off`; windows whose global
+    start leaves [1, n_total - b] are invalidated, as the global
+    computation's out-of-range padding does, so the window's edge-pad
+    rows fabricate no deeper cut."""
     n = lcp.shape[0]
     dev = lcp.device
     if n <= b:
@@ -137,6 +148,9 @@ def _sliding_cut_depth(lcp: torch.Tensor, b: int, max_depth: int) -> torch.Tenso
     pre = _block_cum(lp, b, False, torch.cummin)
     suf = _block_cum(lp, b, True, torch.cummin)
     w_min = torch.minimum(suf[1:n - b + 1], pre[b:n])     # [n-b]
+    if n_total is not None:
+        xg = torch.arange(1, n - b + 1, device=dev) + x_off
+        w_min = torch.where((xg >= 1) & (xg <= n_total - b), w_min, -1)
     wv = b + 1
     mp = torch.cat([full(b, -1), w_min, full(b + (-(n + b)) % wv, -1)])
     pre_m = _block_cum(mp, wv, False, torch.cummax)
@@ -240,93 +254,100 @@ def build_source_cells(
     def first_count(flags, cap):
         edges = compact_starts(flags, cap)
         first = edges[:cap]
-        return first, torch.clamp(edges[1:] - first, 0, n)
+        return (first, torch.clamp(edges[1:] - first, 0, n),
+                torch.clamp(first, 0, n - 1))
 
-    g_first, g_count = first_count(grp_b, g_cap)
-    c_first, c_count = first_count(chd_b, c_cap)
-    c2_first, c2_count = first_count(g2_b, c2_cap)
+    return _cells_from_runs(
+        codes_sorted, pos_sorted, mass_sorted, cut_depth, (grp_b, chd_b, g2_b),
+        (first_count(grp_b, g_cap), first_count(chd_b, c_cap),
+         first_count(g2_b, c2_cap)),
+        (chd_id, g2_id), (n_child, n_g2), g_const, box_lo, box_size,
+        drift_sorted, bits, n_cells, overflow, overflow_g2)
 
-    pmw = _cumsum_prefix(torch.cat([mass_sorted[:, None],
-                                    pos_sorted * mass_sorted[:, None]], dim=1))
+
+def _cells_from_runs(codes, pos, mass, cut_depth, flags, runs, kid_ids,
+                     n_kids, g_const, box_lo, box_size, drift, bits, n_cells,
+                     overflow, overflow_g2) -> SourceCells:
+    """Monopoles, geometry, skins and kid slots of the compacted cell,
+    child and grandchild runs; the part both builds share.
+
+    flags: the three levels' boundary flags over the array (row 0
+    flagged); runs: per level (first, count, row) per slot, the run's
+    first particle as stored, its particle count (0 in a pad slot) and
+    the array row of its first particle; kid_ids: the child and the
+    grandchild run id of each array row; n_kids: their totals."""
+    dev = codes.device
+    n = codes.shape[0]
+    max_d = max_depth_of(bits)
+    grp_b, chd_b, g2_b = flags
+    (g_first, g_count, g_row), (c_first, c_count, c_row), (
+        c2_first, c2_count, c2_row) = runs
+    chd_id, g2_id = kid_ids
+    n_child, n_g2 = n_kids
+    g_cap, c_cap, c2_cap = (g_first.shape[0], c_first.shape[0],
+                            c2_first.shape[0])
+
+    pmw = _cumsum_prefix(torch.cat([mass[:, None], pos * mass[:, None]], 1))
     analytic = box_lo is not None and box_size is not None
-    if not analytic:
-        def minmax(flags):
-            return (_seg_reduce(pos_sorted, flags, "amin"),
-                    _seg_reduce(pos_sorted, flags, "amax"))
 
-        mn_g, mx_g = minmax(grp_b)
-        mn_c, mx_c = minmax(chd_b)
-        mn_g2, mx_g2 = minmax(g2_b)
-
-    def seg_moments(first, count):
+    def seg_moments(row, count):
         valid = count > 0
-        fc = torch.clamp(first, 0, n - 1)
-        d = pmw[torch.clamp(first + count, 0, n)] - pmw[fc]      # float64
+        d = pmw[torch.clamp(row + count, 0, n)] - pmw[row]       # float64
         m = d[:, 0]
         com = torch.where(valid[:, None],
                           d[:, 1:4] / torch.clamp(m, min=1e-20)[:, None], 0.0)
         m32 = m.to(torch.float32)
         return com.to(torch.float32), g_const * m32 * valid
 
-    def last_of(first, count):
-        return torch.clamp(first + count - 1, 0, n - 1)
+    def last_row(row, count):
+        return torch.clamp(row + count - 1, 0, n - 1)
 
-    def bbox_stats(first, count, mn, mx):
+    def bbox_stats(row, count, level):
         valid = count > 0
-        lastp = last_of(first, count)
+        mn = _seg_reduce(pos, flags[level], "amin")
+        mx = _seg_reduce(pos, flags[level], "amax")
+        lastp = last_row(row, count)
         lo = torch.where(valid[:, None], mn[lastp], _BIG_F)
         hi = torch.where(valid[:, None], mx[lastp], -_BIG_F)
         diam = torch.where(valid, (mx[lastp] - mn[lastp]).amax(dim=1), 0.0)
         return diam, lo, hi
 
-    def analytic_stats(first, count, depth):
+    def analytic_stats(row, count, level):
         valid = count > 0
-        fc = torch.clamp(first, 0, n - 1)
+        depth = torch.clamp(cut_depth[row] + level, max=max_d)
         width = torch.where(
-            valid,
-            box_size * torch.exp2(-torch.clamp(depth, max=max_d).to(torch.float32)),
-            0.0,
-        )
-        corner = cell_corner(codes_sorted[fc], depth, box_lo, box_size, bits)
+            valid, box_size * torch.exp2(-depth.to(torch.float32)), 0.0)
+        corner = cell_corner(codes[row], depth, box_lo, box_size, bits)
         lo = torch.where(valid[:, None], corner, _BIG_F)
         hi = torch.where(valid[:, None], corner + width[:, None], -_BIG_F)
         return width, lo, hi
 
-    g_com, g_gm = seg_moments(g_first, g_count)
-    c_com, c_gm = seg_moments(c_first, c_count)
-    c2_com, c2_gm = seg_moments(c2_first, c2_count)
+    g_com, g_gm = seg_moments(g_row, g_count)
+    c_com, c_gm = seg_moments(c_row, c_count)
+    c2_com, c2_gm = seg_moments(c2_row, c2_count)
 
-    if drift_sorted is not None:
-        mxd_g = _seg_reduce(drift_sorted, grp_b, "amax")
-        mxd_c = _seg_reduce(drift_sorted, chd_b, "amax")
-        g_skin = torch.where(g_count > 0, mxd_g[last_of(g_first, g_count)], 0.0)
-        c_skin = torch.where(c_count > 0, mxd_c[last_of(c_first, c_count)], 0.0)
+    if drift is not None:
+        mxd_g = _seg_reduce(drift, grp_b, "amax")
+        mxd_c = _seg_reduce(drift, chd_b, "amax")
+        g_skin = torch.where(g_count > 0, mxd_g[last_row(g_row, g_count)], 0.0)
+        c_skin = torch.where(c_count > 0, mxd_c[last_row(c_row, c_count)], 0.0)
     else:
         g_skin = torch.zeros((g_cap,), dtype=torch.float32, device=dev)
         c_skin = torch.zeros((c_cap,), dtype=torch.float32, device=dev)
 
-    if analytic:
-        def depth_at(first, extra):
-            return torch.clamp(cut_depth[torch.clamp(first, 0, n - 1)] + extra,
-                               max=max_d)
-
-        g_diam, g_lo, g_hi = analytic_stats(g_first, g_count, depth_at(g_first, 0))
-        c_diam, _, _ = analytic_stats(c_first, c_count, depth_at(c_first, 1))
-        c2_diam, _, _ = analytic_stats(c2_first, c2_count, depth_at(c2_first, 2))
-    else:
-        g_diam, g_lo, g_hi = bbox_stats(g_first, g_count, mn_g, mx_g)
-        c_diam, _, _ = bbox_stats(c_first, c_count, mn_c, mx_c)
-        c2_diam, _, _ = bbox_stats(c2_first, c2_count, mn_g2, mx_g2)
+    stats = analytic_stats if analytic else bbox_stats
+    g_diam, g_lo, g_hi = stats(g_row, g_count, 0)
+    c_diam, _, _ = stats(c_row, c_count, 1)
+    c2_diam, _, _ = stats(c2_row, c2_count, 2)
 
     arange8 = torch.arange(8, dtype=_I64, device=dev)
 
-    def regroup(parent_first, parent_count, kid_id, kid_cap, n_kid_total):
+    def regroup(parent_row, parent_count, kid_id, kid_cap, n_kid_total):
         """Parent i's kids are the contiguous kid ids [kid_id[first[i]],
         kid_id[first[i+1]]), in <= 8 slots; a slot past the kid cap is
         DROPPED (never clipped onto another segment)."""
         valid = parent_count > 0
-        pf = torch.clamp(parent_first, 0, n - 1)
-        base = torch.where(valid, kid_id[pf], n_kid_total)
+        base = torch.where(valid, kid_id[parent_row], n_kid_total)
         nxt = torch.cat([base[1:], base.new_zeros(1)])
         nxt_valid = torch.cat([valid[1:], valid.new_zeros(1)])
         nxt = torch.where(nxt_valid, nxt, n_kid_total)
@@ -343,10 +364,10 @@ def build_source_cells(
         return torch.where(okb, v, torch.zeros((), dtype=v.dtype, device=dev))
 
     valid_g = g_count > 0
-    slot_c, kid_ok, _ = regroup(g_first, g_count, chd_id, c_cap, n_child)
+    slot_c, kid_ok, _ = regroup(g_row, g_count, chd_id, c_cap, n_child)
     child_diam = take(c_diam, slot_c, kid_ok)
 
-    slot_2, ok_2, complete_2 = regroup(c_first, c_count, g2_id, c2_cap, n_g2)
+    slot_2, ok_2, complete_2 = regroup(c_row, c_count, g2_id, c2_cap, n_g2)
     gc_com_f = take(c2_com, slot_2, ok_2)                     # [Cc, 8, 3]
     gc_gm_f = take(c2_gm, slot_2, ok_2)                       # [Cc, 8]
     gdm_f = take(c2_diam, slot_2, ok_2).amax(dim=1)           # [Cc]
@@ -377,3 +398,142 @@ def build_source_cells(
         overflow=overflow,
         overflow_g2=overflow_g2,
     )
+
+
+# ---------------------------------------------------------------------------
+# The owner-computes shard of the cut (parallel/shard.py)
+# ---------------------------------------------------------------------------
+
+
+def last_bmax_boundary(codes_own: torch.Tensor, left_code: torch.Tensor,
+                       idx0: int, bits: int) -> torch.Tensor:
+    """Global index of the LAST max-depth run boundary within the owned
+    rows [idx0, idx0 + len(codes_own)), or -1 if none (a device scalar).
+    `left_code` is the global left neighbour of row idx0 (row idx0 - 1;
+    any code when idx0 == 0, which is a boundary anyway).  The one cut
+    carry with unbounded reach: a single finest-cell run can span
+    shards."""
+    prev = torch.cat([left_code.reshape(1), codes_own[:-1]])
+    lcp = lcp_between(codes_own, prev, bits)
+    idx = torch.arange(codes_own.shape[0], dtype=_I64,
+                       device=codes_own.device) + idx0
+    bmax = (idx == 0) | (lcp < 3 * max_depth_of(bits))
+    return torch.where(bmax, idx, -1).max()
+
+
+def build_source_cells_window(
+    codes_sorted: torch.Tensor,
+    pos_sorted: torch.Tensor,
+    mass_sorted: torch.Tensor,
+    b: int,
+    g_const: float,
+    g_cap_shard: int,
+    start: int,
+    own: int,
+    n_total: int,
+    bmax_carry,
+    box_lo: torch.Tensor,
+    box_size: torch.Tensor,
+    drift_sorted: Optional[torch.Tensor] = None,
+    g2_factor: int = 8,
+    *,
+    bits: int,
+) -> SourceCells:
+    """The cells whose FIRST particle lies in the owned rows [start,
+    start + own), built from a window of the sorted arrays centred on
+    them (global rows start - lead .. start + own + lead - 1, edge-padded
+    past the array's ends; lead = 4b in parallel/shard.py).
+
+    The cut depth at a row depends only on the adjacent LCPs within
+    b + 1 rows of it, so a halo of more than 2b + 1 rows on each side
+    reproduces the global flags on every owned row; the one carry with
+    unbounded reach is the last max-depth run boundary before the owned
+    rows (`bmax_carry`, a device scalar or int, from last_bmax_boundary
+    over the earlier shards: inside one finest-cell run the b-run splits
+    are phase-locked to it).  An owned cell's child and grandchild runs
+    end at most b rows past the owned rows, inside the right halo.
+
+    Returns per-shard SourceCells: capacity g_cap_shard, the owned cells
+    packed to a live prefix, n_cells the owned count, `first` and
+    `child_first` global rows.  Shards' cells concatenated in shard order
+    are the global build's; integer fields are identical to it and
+    moments differ by float64 prefix rounding (window-local sums)."""
+    dev = codes_sorted.device
+    n_win = codes_sorted.shape[0]
+    lead = (n_win - own) // 2
+    x0 = start - lead                                   # global row of row 0
+    idx = torch.arange(n_win, dtype=_I64, device=dev) + x0
+    c_cap = 8 * g_cap_shard
+    max_d = max_depth_of(bits)
+
+    lcp = adjacent_lcp(codes_sorted, bits)
+    cut_depth = _sliding_cut_depth(lcp, b, max_d, x_off=x0, n_total=n_total)
+    at_max = cut_depth >= max_d
+
+    def run_start(flags):
+        return torch.cummax(torch.where(flags, idx, -1), dim=0).values
+
+    first_b = idx == 0
+    grp_b = first_b | (lcp < 3 * torch.clamp(cut_depth, max=max_d))
+    bmax = first_b | (lcp < 3 * max_d)
+    st_max = torch.maximum(run_start(bmax), torch.as_tensor(bmax_carry,
+                                                            device=dev))
+    grp_b = grp_b | (at_max & ((idx - st_max) % b == 0))
+
+    chd_b = grp_b | (lcp < 3 * torch.clamp(cut_depth + 1, max=max_d))
+    sub = max(b // 8, 1)
+    grp_start = run_start(grp_b)
+    chd_b = chd_b | (at_max & ((idx - grp_start) % sub == 0))
+
+    g2_b = chd_b | (lcp < 3 * torch.clamp(cut_depth + 2, max=max_d))
+    sub2 = max(b // 64, 1)
+    g2_b = g2_b | (at_max & ((idx - run_start(chd_b)) % sub2 == 0))
+
+    # a run belongs to this shard iff its CELL starts in the owned rows
+    # (the last owned cell's child runs may start in the right halo)
+    owner = (grp_start >= start) & (grp_start < start + own)
+    own_grp, own_chd, own_g2 = grp_b & owner, chd_b & owner, g2_b & owner
+    n_cells = own_grp.sum()
+    n_child = own_chd.sum()
+    n_g2 = own_g2.sum()
+    c2_cap = min(g2_factor, 8) * c_cap
+    overflow = (n_cells > g_cap_shard) | (n_child > c_cap)
+    overflow_g2 = n_g2 > c2_cap
+
+    big = torch.iinfo(torch.int32).max
+
+    def next_boundary(flags):
+        """The first same-level boundary AFTER each row (global row)."""
+        key = torch.where(flags, idx, big).flip(0)
+        nxt = torch.cummin(key, dim=0).values.flip(0)
+        return torch.cat([nxt[1:], nxt.new_full((1,), big)])
+
+    # runs end at the next boundary, clamped to the window and to the
+    # array (the last shard's right pad rows repeat the last code, so its
+    # final cell would otherwise take them)
+    end_win = min(x0 + n_win, n_total)
+
+    def compact(flags, level_flags, cap):
+        skey = torch.sort(torch.where(flags, idx, big)).values
+        if cap <= n_win:
+            firsts = skey[:cap]
+        else:
+            firsts = torch.cat([skey, skey.new_full((cap - n_win,), big)])
+        live = firsts < big
+        row = torch.clamp(firsts - x0, 0, n_win - 1)
+        ends = torch.clamp(next_boundary(level_flags)[row], max=end_win)
+        return (torch.where(live, firsts, 0),
+                torch.where(live, ends - firsts, 0), row)
+
+    # the segment reductions need row 0 flagged; the partial run before
+    # the first boundary is never owned
+    lead_b = torch.arange(n_win, device=dev) == 0
+    return _cells_from_runs(
+        codes_sorted, pos_sorted, mass_sorted, cut_depth,
+        (grp_b | lead_b, chd_b | lead_b, g2_b | lead_b),
+        (compact(own_grp, grp_b, g_cap_shard), compact(own_chd, chd_b, c_cap),
+         compact(own_g2, g2_b, c2_cap)),
+        (torch.cumsum(own_chd.to(_I64), 0) - 1,
+         torch.cumsum(own_g2.to(_I64), 0) - 1),
+        (n_child, n_g2), g_const, box_lo, box_size, drift_sorted, bits,
+        n_cells, overflow, overflow_g2)
