@@ -61,6 +61,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import io as io_module
 import json
 import os
@@ -99,7 +100,7 @@ REPLACES = {
     "near_span": "nbody_tpu/ops/pallas/forces.py:408",
 }
 SOURCE = {
-    "far_sweep": "nbody_tpu_torch/csrc/forces.cu",
+    "far_sweep": "nbody_tpu_torch/csrc/tile_sweeps.cu",
     "table_sweep": "nbody_tpu_torch/csrc/tile_sweeps.cu",
     "near_span": "nbody_tpu_torch/csrc/tile_sweeps.cu",
 }
@@ -113,6 +114,14 @@ PANEL_OPS = {"vpu": 19, "mxu": 20, "mxu_c": 20}
 # panel.term_scale): float32 sums in two orders differ by a few ulps
 # of the sum of |terms|
 PANEL_BOUND = 1e-5
+# The far and table sweeps' rounded, float64-summed arithmetic: operations
+# a pair on the pipe that does QUARTER_LANES lanes per SM per clock (the
+# rsqrt seed of inv_sqrt_rn and three float-to-double conversions)
+QUARTER_OPS_PER_PAIR = 4
+QUARTER_LANES = 16
+# PR 6's times on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6)
+PR6_FAR_MS = {"main": 0.221, "runner": 0.199, "shard": 0.397}
+PR6_PANEL_MS = {"vpu": 5.492, "mxu": 6.232, "mxu_c": 6.226}
 DRIFT_LIMIT = 0.01         # enforced: a broken schedule drifts 6.6-13%
 DRIFT_CRITERION = 0.002    # the BASELINE.json criterion, reported
 RUNNER_STEPS = 1024
@@ -163,9 +172,11 @@ def kernel_calls(cfg, ps, ms, ss, bands, tables):
     }
 
 
-def compare(calls):
+def compare(calls, label="", far_inputs=None):
     """Per kernel (max relative error against the plain total, max
-    absolute error), each kernel against its plain version."""
+    absolute error), each kernel against its plain version; and, with
+    far_inputs = (pos, supers, cfg), the far sweep's count of targets that
+    differ from plain in any bit (far_bit_check), else None."""
     outs = {k: (kfn(), pfn()) for k, (kfn, pfn) in calls.items()}
     sync()
     total = sum(p for _, p in outs.values()).norm(dim=1) + 1e-6
@@ -175,7 +186,83 @@ def compare(calls):
             raise RuntimeError(f"{k}: kernel output is not finite")
         diff = (ko - po).norm(dim=1)
         res[k] = (float((diff / total).max()), float((ko - po).abs().max()))
-    return res
+    differ = None
+    if far_inputs is not None:
+        differ = far_bit_check(label, *outs["far_sweep"], *far_inputs)
+    return res, differ
+
+
+def far_bit_check(label, k_out, p_out, pos, ss, cfg):
+    """The far sweep's contract: its output is bit-equal to the plain
+    version's except at targets where some argument |d|^2 + soft (computed
+    as the plain version computes it) is a tie of the one-SFU 1 / sqrt
+    (inv_sqrt_rn differs there from IEEE sqrt and division).  Logs every
+    differing target with its tie arguments; raises if one is not traced
+    to a tie.  Returns the number of differing targets."""
+    bits = (k_out.view(torch.int32) != p_out.view(torch.int32)).any(dim=1)
+    idx = torch.nonzero(bits).flatten().tolist()
+    live = min(int(ss.n_supers), ss.gmass.shape[0])
+    com = ss.com[:live]
+    soft = forces.soft_term(cfg)
+    untraced = []
+    for i in idx:
+        dx = com[:, 0] - pos[i, 0]
+        dy = com[:, 1] - pos[i, 1]
+        dz = com[:, 2] - pos[i, 2]
+        x = dx * dx + dy * dy + dz * dz + soft
+        ties = torch.nonzero(kern.inv_sqrt_rn(x).view(torch.int32)
+                             != (1.0 / torch.sqrt(x)).view(torch.int32))
+        ties = ties.flatten().tolist()
+        args = ", ".join(f"source {j}: {float(x[j]):.9g} "
+                         f"(0x{int(x[j:j + 1].view(torch.int32)) & 0xFFFFFFFF:08x})"
+                         for j in ties)
+        log(f"[{label}] far_sweep target {i} differs from plain "
+            f"(kernel {k_out[i].tolist()}, plain {p_out[i].tolist()}); "
+            f"inv_sqrt_rn ties among its arguments |d|^2 + soft: "
+            f"{args or 'none'}")
+        if not ties:
+            untraced.append(i)
+    log(f"[{label}] far_sweep bit_equal: {pos.shape[0] - len(idx)} of "
+        f"{pos.shape[0]} targets bit-equal to plain, {len(idx)} differ "
+        f"({len(idx) - len(untraced)} traced to inv_sqrt_rn ties)")
+    if untraced:
+        raise RuntimeError(f"[{label}] far_sweep differs from plain at "
+                           f"targets {untraced[:20]} with no inv_sqrt_rn tie")
+    return len(idx)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout
+    return float(out.strip().splitlines()[0].split()[0])
+
+
+def ceiling_ms(pairs):
+    """Least time of the far and table sweeps' arithmetic for `pairs`
+    pairs: QUARTER_OPS_PER_PAIR operations a pair on the pipe of
+    QUARTER_LANES lanes per SM per clock, on every SM at the maximum SM
+    clock."""
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
+    rate = QUARTER_LANES * sms * sm_clock_mhz() * 1e6
+    return 1e3 * QUARTER_OPS_PER_PAIR * pairs / rate
+
+
+def far_ceiling_report(label, ms, bound, pairs, pr6_ms):
+    """The [far ceiling] line: the far sweep's time against its 20-op bound
+    and against its arithmetic's ceiling."""
+    ceil = ceiling_ms(pairs)
+    log(f"[far ceiling {label}] {pairs:.4e} pairs, kernel {ms:.4f} ms (PR 6 "
+        f"{pr6_ms:.3f} ms); 20-op FP32 bound {bound:.4f} ms, "
+        f"{100 * bound / ms:.1f}% of it reached; arithmetic ceiling "
+        f"{ceil:.4f} ms = pairs x {QUARTER_OPS_PER_PAIR} ops / "
+        f"({QUARTER_LANES} lanes x "
+        f"{torch.cuda.get_device_properties(DEVICE).multi_processor_count} "
+        f"SMs x {sm_clock_mhz():.0f} MHz), {100 * ceil / ms:.1f}% of it "
+        f"reached")
+    return ceil
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -189,7 +276,7 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
 def bounds_ms(cfg, ps, ss, bands, tables, n_src=None):
     """Least time for each kernel's work on this run's data: the larger of
     FP32 operations over the FP32 peak and bytes (inputs read once,
-    outputs written once) over the memory rate; (ms, bound_by).  n_src:
+    outputs written once) over the memory rate; (ms, bound_by, pairs).  n_src:
     the near sweep's source rows (default: the targets)."""
     n, b = ps.shape[0], cfg.force_tile
     n_src = n if n_src is None else n_src
@@ -210,7 +297,7 @@ def bounds_ms(cfg, ps, ss, bands, tables, n_src=None):
         t_ops = FLOPS_PER_PAIR * pairs / PEAK_FP32
         t_mem = nbytes / PEAK_BYTES
         out[k] = (1e3 * max(t_ops, t_mem),
-                  "operations" if t_ops >= t_mem else "bytes")
+                  "operations" if t_ops >= t_mem else "bytes", pairs)
     return out
 
 
@@ -261,7 +348,7 @@ def check_geometry(label, cfg):
     ps, ms, cs, _ = sorted_inputs(cfg, state)
     _, ss, bands, tables = forces.build_bands(ps, ms, cs, cfg)
     calls = kernel_calls(cfg, ps, ms, ss, bands, tables)
-    errs = compare(calls)
+    errs, differ = compare(calls, f"kernels {label}", (ps, ss, cfg))
     for k, (kfn, pfn) in calls.items():
         rel, _ = errs[k]
         k_ms, p_ms = event_ms(kfn, 10), event_ms(pfn, 2)
@@ -269,7 +356,7 @@ def check_geometry(label, cfg):
             f"{BOUNDS[k]:.0e})  kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms")
         if not rel <= BOUNDS[k]:
             raise RuntimeError(f"{k} at {label}: error {rel} > {BOUNDS[k]}")
-    return {k: v[0] for k, v in errs.items()}
+    return {k: v[0] for k, v in errs.items()}, differ
 
 
 def phase_breakdown(cfg, state):
@@ -499,11 +586,12 @@ def runner_phase(cfg, steps, chunk=32):
         f"{int(k_next)}")
     near_pairs_report("kernels runner", cfg, bands)
     calls = kernel_calls(cfg, pos, mass, ss, bands, tables)
-    errs = compare(calls)
+    errs, differ = compare(calls, "kernels runner", (pos, ss, cfg))
     bnd = bounds_ms(cfg, pos, ss, bands, tables)
     timing = {}
     for k, (rel, abs_err) in errs.items():
-        timing[k] = (event_ms(calls[k][0], 10), bnd[k][0])
+        timing[k] = (event_ms(calls[k][0], 10), bnd[k][0],
+                     ceiling_ms(bnd[k][2]))
         log(f"[kernels runner] {k}: rel_err {rel:.3e} (bound "
             f"{BOUNDS[k]:.0e}), max abs err {abs_err:.3e}; kernel "
             f"{timing[k][0]:.3f} ms, bound {bnd[k][0]:.3f} ms ({bnd[k][1]}, "
@@ -511,6 +599,8 @@ def runner_phase(cfg, steps, chunk=32):
         if not rel <= BOUNDS[k]:
             raise RuntimeError(f"{k} on the runner's bands: error {rel} > "
                                f"{BOUNDS[k]}")
+    far_ceiling_report("runner", timing["far_sweep"][0], bnd["far_sweep"][0],
+                       bnd["far_sweep"][2], PR6_FAR_MS["runner"])
     tile_order_report("kernels runner", bands, tables)
     check_syncs(sim, ic, nxt, chunk)
     stepper = sim.make_stepper(nxt)
@@ -519,7 +609,7 @@ def runner_phase(cfg, steps, chunk=32):
         f"one run_scan chunk of {chunk} steps": lambda: sim.run_scan(nxt,
                                                                      chunk),
     })
-    return launches, errs, timing
+    return launches, errs, timing, differ
 
 
 def check_syncs(sim, ic, state, chunk):
@@ -593,9 +683,11 @@ def probe_phase():
         t_ops, t_mem = ops / PEAK_FP32, nbytes / PEAK_BYTES
         bound = 1e3 * max(t_ops, t_mem)
         bound_by = "operations" if t_ops >= t_mem else "bytes"
-        log(f"[probe] {key}: kernel {res['ms'][name]:.3f} ms, plain "
-            f"{p_ms:.3f} ms, bound {bound:.3f} ms ({bound_by}), err/term "
-            f"scale {rel:.3e} (bound {PANEL_BOUND:.0e}), max abs err "
+        log(f"[probe] {key}: kernel {res['ms'][name]:.3f} ms (PR 6 "
+            f"{PR6_PANEL_MS[name]:.3f} ms), plain {p_ms:.3f} ms, bound "
+            f"{bound:.3f} ms ({bound_by}, {100 * bound / res['ms'][name]:.1f}%"
+            f" of it reached; PR 6 {100 * bound / PR6_PANEL_MS[name]:.1f}%), "
+            f"err/term scale {rel:.3e} (bound {PANEL_BOUND:.0e}), max abs err "
             f"{abs_err:.3e}")
         if not rel <= PANEL_BOUND:
             raise RuntimeError(f"{key}: error {rel} > {PANEL_BOUND}")
@@ -995,13 +1087,15 @@ def shard_rank(mesh, cfg, n_steps):
                               p, p_src, m_src, wf, b.win_mask, b.win_cnt,
                               cfg)),
         }
-        errs = compare(calls)
+        errs, differ = compare(calls, "kernels shard", (p, ss, cfg))
         bnd = bounds_ms(cfg, p, ss, bands, tables, n_src=p_src.shape[0])
         res["kernels"] = {
             k: {"rel_err": errs[k][0], "max_abs_err": errs[k][1],
                 "ms": event_ms(calls[k][0], 10), "plain_ms": event_ms(
                     calls[k][1], 2), "bound_ms": bnd[k][0],
-                "bound_by": bnd[k][1]} for k in calls}
+                "bound_by": bnd[k][1], "pairs": bnd[k][2],
+                "ceiling_ms": ceiling_ms(bnd[k][2])} for k in calls}
+        res["kernels"]["far_sweep"]["bit_differ"] = differ
         # near_span on the halo + fetch sources and rebased windows:
         # against its plain version, and against itself on the gather
         fast = {"near_span": (
@@ -1009,7 +1103,7 @@ def shard_rank(mesh, cfg, n_steps):
                                    b.win_cnt, cfg),
             lambda: forces.near_correction_torch(
                 p, p_fast, m_fast, wf_fast, b.win_mask, b.win_cnt, cfg))}
-        rel, abs_err = compare(fast)["near_span"]
+        rel, abs_err = compare(fast)[0]["near_span"]
         gathered = kern.near_span(p, p_all, glob.mass_s, b.win_first,
                                   b.win_mask, b.win_cnt, cfg)
         res["near_fast"] = {
@@ -1200,6 +1294,12 @@ def shard_phase():
             "plain_ms": kr["plain_ms"], "bound_ms": kr["bound_ms"],
             "bound_by": kr["bound_by"], "library_ms": None,
             "rel_err": kr["rel_err"]})
+        if k in ("far_sweep", "table_sweep"):
+            rows[-1]["ceiling_ms"] = kr["ceiling_ms"]
+        if k == "far_sweep":
+            rows[-1]["bit_differ"] = kr["bit_differ"]
+            far_ceiling_report("shard", kr["ms"], kr["bound_ms"], kr["pairs"],
+                               PR6_FAR_MS["shard"])
         if k == "near_span":
             rows[-1].update(n_src=r0["slab"]["near_sources"],
                             ms_halo_fetch=nf["ms"],
@@ -1244,6 +1344,81 @@ def ensemble_phase():
     return {"ms": ms, "launches": launches}
 
 
+# [far edges]: (label, targets, super-super rows S, live count, massless
+# rows at the end of the live prefix)
+FAR_EDGES = [
+    ("n=50,001", 50_001, 192, 105, 0),
+    ("n_live=0", 50_001, 192, 0, 0),
+    ("n_live=1", 50_001, 192, 1, 0),
+    ("n_live=7", 50_001, 192, 7, 0),
+    ("n_live=S", 50_001, 192, 192, 0),
+    ("n_live>S (clamped)", 50_001, 192, 250, 0),
+    ("massless pads ending the live prefix", 50_001, 192, 120, 16),
+    ("n=100,000 (bh_100k's size)", 100_000, 192, 105, 0),
+    ("S past one staged chunk", 20_000, 1600, 1500, 0),
+    ("the 1M IC's sizes", 1_000_448, 192, 105, 0),
+    ("a sharded_4m slab's sizes", 500_224, 576, 461, 0),
+]
+
+
+def far_edge_inputs(n, s, live, pads, seed):
+    """n targets and S super-super rows on the card: coordinates of a thin
+    disk of radius 1700, positive masses on the live rows but the last
+    `pads` of them (massless at their positions), rows past the live count
+    massless at the origin, as the band build pads them."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def disk(m):
+        x = (torch.rand((m, 3), generator=gen, device=DEVICE) - 0.5) * 3400.0
+        x[:, 2] *= 0.05
+        return x
+
+    pos, com = disk(n), disk(s)
+    gmass = 1.0 + 1e4 * torch.rand((s,), generator=gen, device=DEVICE)
+    k = min(live, s)
+    gmass[k - pads:k] = 0.0
+    gmass[k:] = 0.0
+    com[k:] = 0.0
+    zero = torch.zeros_like(gmass)
+    return pos, forces.Supers(com=com, gmass=gmass, diam=zero, lo=com,
+                              hi=com, skin=zero,
+                              n_supers=torch.tensor(live, device=DEVICE))
+
+
+def far_edges_phase(cfg):
+    """[far edges]: the far sweep bit for bit against its plain version at
+    the counts and sizes of FAR_EDGES (any n, any live count, the clamp,
+    massless pads, more live rows than one staged chunk, the main path's
+    sizes); one launch each, then its time against its 20-op bound and its
+    arithmetic's ceiling.  Returns the number of differing targets, all
+    traced to ties."""
+    total = 0
+    for i, (label, n, s, live, pads) in enumerate(FAR_EDGES):
+        pos, ss = far_edge_inputs(n, s, live, pads, seed=i)
+        kern.reset_launches()
+        k_out = kern.far_sweep(pos, ss, cfg)
+        if kern.LAUNCHES["far_sweep"] != 1:
+            raise RuntimeError(f"[far edges] {label}: launches "
+                               f"{kern.LAUNCHES['far_sweep']}")
+        p_out = forces.far_sweep_torch(pos, ss, cfg)
+        sync()
+        r, blocks = kern.far_geometry(n, torch.cuda.get_device_properties(
+            DEVICE).multi_processor_count)
+        total += far_bit_check(f"far edges {label}", k_out, p_out, pos, ss,
+                               cfg)
+        pairs = n * min(live, s)
+        ms = event_ms(lambda: kern.far_sweep(pos, ss, cfg), 20)
+        bound = 1e3 * FLOPS_PER_PAIR * pairs / PEAK_FP32
+        ceil = ceiling_ms(pairs)
+        log(f"[far edges] {label}: n={n}, S={s}, n_live={live}, {pads} "
+            f"massless pads in the live prefix; {r} targets a thread, "
+            f"{blocks} blocks; max |plain| {float(p_out.abs().max()):.4e}; "
+            f"kernel {ms:.4f} ms, 20-op bound {bound:.4f} ms "
+            f"({100 * bound / ms:.1f}%), arithmetic ceiling {ceil:.4f} ms "
+            f"({100 * ceil / ms:.1f}%)")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1264,18 +1439,20 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     bad = kern.inv_sqrt_mismatches(DEVICE)
-    log(f"[build] table_sweep's one-SFU 1/sqrt differs from IEEE sqrt and "
-        f"division at {bad} floats of [2^-100, inf) (at most "
+    log(f"[build] the far and table sweeps' one-SFU 1/sqrt differs from "
+        f"IEEE sqrt and division at {bad} floats of [2^-100, inf) (at most "
         f"{kern.INV_SQRT_TIES}: two per odd binade)")
     if bad > kern.INV_SQRT_TIES:
         raise RuntimeError(f"inv_sqrt_rn: {bad} mismatches")
 
     base = PRESETS["v5_bench"]
-    geo_err = {
+    geo = {
         "t512": check_geometry("n=50k t512", base.replace(n=50_000)),
         "t128": check_geometry("n=50k t128 near_cap=60", base.replace(
             n=50_000, force_tile=128, near_cap=60)),
     }
+    geo_err = {k: v[0] for k, v in geo.items()}
+    edges_differ = far_edges_phase(base)
 
     # --- main path: v5_bench, N = 1M, through Simulation.step ------------
     cfg = base
@@ -1316,10 +1493,11 @@ def main() -> int:
     band_report("main", cfg, cells, ss, bands)
 
     near_pairs_report("kernels main", cfg, bands)
-    launches, runner_err, runner_ms = runner_phase(cfg, RUNNER_STEPS)
+    launches, runner_err, runner_ms, runner_differ = runner_phase(
+        cfg, RUNNER_STEPS)
 
     calls = kernel_calls(cfg, ps, ms, ss, bands, tables)
-    errs = compare(calls)
+    errs, main_differ = compare(calls, "kernels main", (ps, ss, cfg))
     bnd = bounds_ms(cfg, ps, ss, bands, tables)
     rows = []
     for k, (kfn, pfn) in calls.items():
@@ -1343,6 +1521,17 @@ def main() -> int:
         log(f"[kernels main] {k}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
             f"bound {bnd[k][0]:.3f} ms ({bnd[k][1]}, "
             f"{100 * bnd[k][0] / k_ms:.1f}% of it reached), rel_err {rel:.3e}")
+        if k in ("far_sweep", "table_sweep"):
+            rows[-1].update(ceiling_ms=ceiling_ms(bnd[k][2]),
+                            ceiling_ms_runner=runner_ms[k][2])
+        if k == "far_sweep":
+            rows[-1].update(bit_differ_main=main_differ,
+                            bit_differ_runner=runner_differ,
+                            bit_differ_t512=geo["t512"][1],
+                            bit_differ_t128=geo["t128"][1],
+                            bit_differ_edges=edges_differ)
+            far_ceiling_report("main", k_ms, bnd[k][0], bnd[k][2],
+                               PR6_FAR_MS["main"])
 
     tile_order_report("kernels main", bands, tables)
 

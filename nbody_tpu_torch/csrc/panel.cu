@@ -13,103 +13,186 @@
 // with w = m / (|d|^2 + soft)^{3/2} (rsqrtf, as lax.rsqrt).  V = 1 and 2
 // rest on the identity sum w (q - p) = sum w q - p sum w, whose float32
 // cancellation is what the probe measures, so every sum is float32 as the
-// Pallas kernel's (preferred_element_type=float32), and S is formed in
-// the kernel's own body with FMAs; a tensor-core (mma) version of S is
-// later work.
+// Pallas kernel's (preferred_element_type=float32), each target's chunk
+// sum taken source by source in order, and S is formed in the kernel's
+// own body with FMAs; a tensor-core (mma) version of S is later work.
 //
-// Bound: FP32 throughput.  About 20 operations per pair (19 for vpu) and
-// one rsqrt; every source staged in shared memory is read by all 256
-// threads of the block, and each target is read and written once.  One
-// target per thread, one 256-target panel per block, sources staged
-// through shared memory one 1024-source chunk at a time.
+// Bound: the FP32 pipe and the issue rate.  The bound counts 19 (vpu) or
+// 20 FP32 operations a pair; with fused multiply-adds a pair is 13 (vpu)
+// or 14 FP32 instructions and one SFU rsqrt, so about 70% of that bound
+// is the most this arithmetic can reach.  What the design does about it:
+//   * kTargets targets a thread (a panel is one block of kTile / kTargets
+//     threads), so one 16-byte broadcast shared-memory load of a source
+//     (x, y, z, m) feeds kTargets pairs and the loop's overhead is shared;
+//   * the sources of a chunk are staged as float4 in shared memory through
+//     a two-stage cp.async ring, so chunk c + 1 is in flight while chunk c
+//     is swept, with one barrier pair per chunk;
+//   * the pair loop is unrolled by kUnroll with no remainder (a chunk is
+//     1024 sources).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kTile = 256;    // targets per panel (_prof_mxu.B)
 constexpr int kChunk = 1024;  // sources per chunk (_prof_mxu.LC)
+constexpr int kStage = 512;   // sources per cp.async stage
+constexpr int kStagesPerChunk = kChunk / kStage;
+constexpr int kUnroll = 8;
 
-template <int V>
-__global__ void __launch_bounds__(kTile)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+               "l"(gmem));
+}
+
+// One panel per block, R targets a thread: target r of thread tid is row
+// r * (kTile / R) + tid of the panel, so a warp's loads are contiguous.
+template <int V, int R>
+__global__ void __launch_bounds__(kTile / R)
     panel_sweep_kernel(const float* __restrict__ pos3,
                        const float* __restrict__ gx,
                        const float* __restrict__ gy,
                        const float* __restrict__ gz,
                        const float* __restrict__ gm, int n_chunks, float soft,
                        float* __restrict__ out) {
-  __shared__ float sx[kChunk], sy[kChunk], sz[kChunk], sm[kChunk];
+  constexpr int kThreads = kTile / R;
+  __shared__ float4 buf[2][kStage];
   const int tid = threadIdx.x;
-  const size_t i = (size_t)blockIdx.x * kTile + tid;
-  float px = pos3[3 * i], py = pos3[3 * i + 1], pz = pos3[3 * i + 2];
+  const size_t row0 = (size_t)blockIdx.x * kTile;
+  float p[R][3];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const size_t i = row0 + r * kThreads + tid;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) p[r][c] = pos3[3 * i + c];
+  }
   float cx = 0.f, cy = 0.f, cz = 0.f;
   if constexpr (V == 2) {
-    // the panel's mean target (jnp.mean over the 256 rows)
+    // the panel's mean target (jnp.mean over the 256 rows), by a tree over
+    // the rows in their panel order
     __shared__ float red[3][kTile];
-    red[0][tid] = px;
-    red[1][tid] = py;
-    red[2][tid] = pz;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) red[c][r * kThreads + tid] = p[r][c];
+    }
     __syncthreads();
     for (int s = kTile / 2; s > 0; s >>= 1) {
-      if (tid < s) {
-        red[0][tid] += red[0][tid + s];
-        red[1][tid] += red[1][tid + s];
-        red[2][tid] += red[2][tid + s];
+      for (int i = tid; i < s; i += kThreads) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) red[c][i] += red[c][i + s];
       }
       __syncthreads();
     }
     cx = red[0][0] * (1.0f / kTile);
     cy = red[1][0] * (1.0f / kTile);
     cz = red[2][0] * (1.0f / kTile);
-    px -= cx;
-    py -= cy;
-    pz -= cz;
-  }
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  for (int c = 0; c < n_chunks; ++c) {
-    __syncthreads();  // the previous chunk is consumed
-    for (int k = tid; k < kChunk; k += kTile) {
-      const int j = c * kChunk + k;
-      sx[k] = gx[j] - cx;
-      sy[k] = gy[j] - cy;
-      sz[k] = gz[j] - cz;
-      sm[k] = gm[j];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      p[r][0] -= cx;
+      p[r][1] -= cy;
+      p[r][2] -= cz;
     }
-    __syncthreads();
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < kChunk; ++k) {
-      const float qx = sx[k], qy = sy[k], qz = sz[k];
-      const float dx = qx - px;
-      const float dy = qy - py;
-      const float dz = qz - pz;
-      const float d2 = dx * dx + dy * dy + dz * dz;
-      const float inv = rsqrtf(d2 + soft);
-      const float w = sm[k] * (inv * inv * inv);
-      if constexpr (V == 0) {
-        s1 += w * dx;
-        s2 += w * dy;
-        s3 += w * dz;
-      } else {
-        s0 += w;
-        s1 += w * qx;
-        s2 += w * qy;
-        s3 += w * qz;
+  }
+
+  auto stage = [&](int st) {
+    float4* dst = buf[st & 1];
+    const size_t j0 = (size_t)st * kStage;
+    for (int k = tid; k < kStage; k += kThreads) {
+      cp_async4(&dst[k].x, gx + j0 + k);
+      cp_async4(&dst[k].y, gy + j0 + k);
+      cp_async4(&dst[k].z, gz + j0 + k);
+      cp_async4(&dst[k].w, gm + j0 + k);
+    }
+    asm volatile("cp.async.commit_group;");
+  };
+
+  float a[R][3] = {};
+  float s[R][4];
+  const int n_stages = n_chunks * kStagesPerChunk;
+  if (n_stages > 0) stage(0);
+  for (int st = 0; st < n_stages; ++st) {
+    if (st % kStagesPerChunk == 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
       }
     }
-    if constexpr (V == 0) {
-      ax += s1;
-      ay += s2;
-      az += s3;
+    if (st + 1 < n_stages) {
+      stage(st + 1);
+      asm volatile("cp.async.wait_group 1;");
     } else {
-      ax += s1 - px * s0;
-      ay += s2 - py * s0;
-      az += s3 - pz * s0;
+      asm volatile("cp.async.wait_group 0;");
     }
+    __syncthreads();
+    const float4* __restrict__ src = buf[st & 1];
+    for (int k = 0; k < kStage; k += kUnroll) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const float4 q = src[k + u];
+        const float qx = q.x - cx, qy = q.y - cy, qz = q.z - cz;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float dx = qx - p[r][0];
+          const float dy = qy - p[r][1];
+          const float dz = qz - p[r][2];
+          const float d2 = dx * dx + dy * dy + dz * dz;
+          const float inv = rsqrtf(d2 + soft);
+          const float w = q.w * (inv * inv * inv);
+          if constexpr (V == 0) {
+            s[r][1] += w * dx;
+            s[r][2] += w * dy;
+            s[r][3] += w * dz;
+          } else {
+            s[r][0] += w;
+            s[r][1] += w * qx;
+            s[r][2] += w * qy;
+            s[r][3] += w * qz;
+          }
+        }
+      }
+    }
+    if ((st + 1) % kStagesPerChunk == 0) {    // the chunk's partial
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          if constexpr (V == 0) {
+            a[r][c] += s[r][c + 1];
+          } else {
+            a[r][c] += s[r][c + 1] - p[r][c] * s[r][0];
+          }
+        }
+      }
+    }
+    __syncthreads();    // before stage st + 2 overwrites this buffer
   }
-  out[3 * i] = ax;
-  out[3 * i + 1] = ay;
-  out[3 * i + 2] = az;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const size_t i = row0 + r * kThreads + tid;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) out[3 * i + c] = a[r][c];
+  }
+}
+
+template <int R>
+void launch(int variant, const float* pos3, int tiles, const float* gx,
+            const float* gy, const float* gz, const float* gm, int n_chunks,
+            float soft, float* out, cudaStream_t s) {
+  constexpr int threads = kTile / R;
+  if (variant == 0) {
+    panel_sweep_kernel<0, R><<<tiles, threads, 0, s>>>(pos3, gx, gy, gz, gm,
+                                                       n_chunks, soft, out);
+  } else if (variant == 1) {
+    panel_sweep_kernel<1, R><<<tiles, threads, 0, s>>>(pos3, gx, gy, gz, gm,
+                                                       n_chunks, soft, out);
+  } else {
+    panel_sweep_kernel<2, R><<<tiles, threads, 0, s>>>(pos3, gx, gy, gz, gm,
+                                                       n_chunks, soft, out);
+  }
 }
 
 }  // namespace
@@ -117,26 +200,22 @@ __global__ void __launch_bounds__(kTile)
 extern "C" {
 
 // variant 0 vpu, 1 mxu, 2 mxu_c; pos3 [tiles, 256, 3], g* [n_src] with
-// n_src a multiple of 1024, out [tiles, 256, 3].
+// n_src a multiple of 1024, out [tiles, 256, 3]; targets per thread 2 or 4.
 int nbody_panel_sweep(int variant, const float* pos3, int tiles,
                       const float* gx, const float* gy, const float* gz,
                       const float* gm, int n_src, float soft, float* out,
-                      void* stream) {
-  if (n_src % kChunk != 0 || variant < 0 || variant > 2) {
+                      int targets, void* stream) {
+  if (n_src % kChunk != 0 || variant < 0 || variant > 2 ||
+      (targets != 2 && targets != 4)) {
     return (int)cudaErrorInvalidValue;
   }
   if (tiles > 0) {
     const int n_chunks = n_src / kChunk;
     cudaStream_t s = (cudaStream_t)stream;
-    if (variant == 0) {
-      panel_sweep_kernel<0><<<tiles, kTile, 0, s>>>(pos3, gx, gy, gz, gm,
-                                                    n_chunks, soft, out);
-    } else if (variant == 1) {
-      panel_sweep_kernel<1><<<tiles, kTile, 0, s>>>(pos3, gx, gy, gz, gm,
-                                                    n_chunks, soft, out);
+    if (targets == 4) {
+      launch<4>(variant, pos3, tiles, gx, gy, gz, gm, n_chunks, soft, out, s);
     } else {
-      panel_sweep_kernel<2><<<tiles, kTile, 0, s>>>(pos3, gx, gy, gz, gm,
-                                                    n_chunks, soft, out);
+      launch<2>(variant, pos3, tiles, gx, gy, gz, gm, n_chunks, soft, out, s);
     }
   }
   return (int)cudaGetLastError();

@@ -32,19 +32,13 @@ class Library(NamedTuple):
 
 
 LIBRARIES = {
-    "forces": Library(
-        _PKG / "csrc" / "forces.cu",
-        # no fused multiply-adds: each far-sweep term rounds as the plain
-        # PyTorch version rounds it (see the numerics note in forces.cu)
-        ["-fmad=false"],
-        {
-            # pos, n, com, gmass, s_cap, n_live, soft, acc, stream
-            "nbody_far_sweep": [_P, _I, _P, _P, _I, _P, _F, _P, _P],
-        }),
     "tile_sweeps": Library(
         _PKG / "csrc" / "tile_sweeps.cu",
         [],
         {
+            # pos, n, com, gmass, s_cap, n_live (int64), soft, acc, r,
+            # blocks, stream
+            "nbody_far_sweep": [_P, _I, _P, _P, _I, _P, _F, _P, _I, _I, _P],
             # pos, tiles, b, tx, ty, tz, tm, rows, near_cnt, row_cnt,
             # near_cap, order, soft, acc, stream
             "nbody_table_sweep": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I,
@@ -55,13 +49,17 @@ LIBRARIES = {
                                 _F, _F, _P, _P],
             # lo, hi (float bit patterns), bad (uint64 count), stream
             "nbody_inv_sqrt_check": [ctypes.c_uint, ctypes.c_uint, _P, _P],
+            # x, n, out, stream
+            "nbody_inv_sqrt_eval": [_P, _I, _P, _P],
         }),
     "panel": Library(
         _PKG / "csrc" / "panel.cu",
         [],
         {
-            # variant, pos3, tiles, gx, gy, gz, gm, n_src, soft, out, stream
-            "nbody_panel_sweep": [_I, _P, _I, _P, _P, _P, _P, _I, _F, _P, _P],
+            # variant, pos3, tiles, gx, gy, gz, gm, n_src, soft, out,
+            # targets, stream
+            "nbody_panel_sweep": [_I, _P, _I, _P, _P, _P, _P, _I, _F, _P, _I,
+                                  _P],
         }),
 }
 

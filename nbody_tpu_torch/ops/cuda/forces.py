@@ -1,16 +1,19 @@
-"""Wrappers of the CUDA force kernels (csrc/forces.cu: the far sweep;
-csrc/tile_sweeps.cu: the table and near-span sweeps).
+"""Wrappers of the CUDA force kernels (csrc/tile_sweeps.cu: the far,
+table and near-span sweeps).
 
 Each wrapper takes the same arguments as its plain PyTorch version in
 ``nbody_tpu_torch.ops.forces``.  On CPU tensors it returns the plain
 version; on CUDA tensors it checks device, dtype, shape and contiguity,
 allocates the output (and, for the two per-tile kernels, the
-heaviest-first tile order), launches the kernel on the current stream
-and raises if the launch failed.  ``LAUNCHES`` counts kernel launches per
+heaviest-first tile order; for the far sweep, picks its launch geometry
+with `far_geometry`), launches the kernel on the current stream and
+raises if the launch failed.  ``LAUNCHES`` counts kernel launches per
 wrapper, so a run can show that its path went through the kernels.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -35,23 +38,53 @@ def heavy_first(work: torch.Tensor) -> torch.Tensor:
     return torch.argsort(work, descending=True, stable=True)
 
 
+# The far kernel's block (tile_sweeps.cu kThreads) and the targets per
+# thread it takes, most first.
+FAR_THREADS = 128
+FAR_TARGETS = (2, 1)
+# share of the rounds of one block per SM that the far blocks must fill
+FAR_FILL = 0.9
+
+
+def far_geometry(n: int, sms: int) -> tuple:
+    """(targets per thread, blocks) of the far sweep for n targets on a card
+    of `sms` SMs.  Every target sweeps the same live list, so every block
+    does the same work and the launch lasts as long as the SM that is given
+    the most blocks: ceil(blocks / sms) rounds of one block per SM.  Takes
+    two targets a thread (two pairs per staged source load) where the
+    blocks fill those rounds to FAR_FILL, else one (twice the blocks, and
+    the most warps on each SM).  At n = 100,000 on 132 SMs, four a thread
+    would leave the second of two rounds half empty (196 blocks); two fill
+    391 of 396 slots."""
+    for r in FAR_TARGETS:
+        blocks = max(1, -(-n // (r * FAR_THREADS)))
+        if blocks / (sms * -(-blocks // sms)) >= FAR_FILL:
+            return r, blocks
+    return 1, blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def far_sweep(pos_s: torch.Tensor, supers: "_forces.Supers",
               cfg: SimConfig) -> torch.Tensor:
-    """Kernel version of forces.far_sweep_torch."""
-    if on_cpu(pos_s, supers.com, supers.gmass):
+    """Kernel version of forces.far_sweep_torch (the kernel reads the live
+    count, an int64 on the device, itself)."""
+    if on_cpu(pos_s, supers.com, supers.gmass, supers.n_supers):
         return _forces.far_sweep_torch(pos_s, supers, cfg)
     f32 = torch.float32
     n = pos_s.shape[0]
     s = supers.gmass.shape[0]
-    n_live = supers.n_supers.to(device=pos_s.device,
-                                dtype=torch.int32).reshape(1)
     out = torch.empty((n, 3), dtype=f32, device=pos_s.device)
-    rc = build.load("forces").nbody_far_sweep(
+    r, blocks = far_geometry(n, _sm_count(pos_s.device))
+    rc = build.load("tile_sweeps").nbody_far_sweep(
         check(pos_s, f32, (n, 3), "pos"), n,
         check(supers.com, f32, (s, 3), "com"),
         check(supers.gmass, f32, (s,), "gmass"), s,
-        n_live.data_ptr(), _forces.soft_term(cfg), out.data_ptr(),
-        stream(pos_s))
+        check(supers.n_supers, torch.int64, (), "n_supers"),
+        _forces.soft_term(cfg), out.data_ptr(), r, blocks, stream(pos_s))
     launched(rc, "far_sweep", LAUNCHES)
     return out
 
@@ -110,17 +143,17 @@ def near_span(tgt_pos: torch.Tensor, src_pos: torch.Tensor,
     return out
 
 
-# Floats from 2^-100 up where the table sweep's one-SFU 1 / sqrt may differ
-# from IEEE sqrt and division: two per odd binade (tile_sweeps.cu,
-# inv_sqrt_rn).
+# Floats from 2^-100 up where the far and table sweeps' one-SFU 1 / sqrt
+# may differ from IEEE sqrt and division: two per odd binade
+# (tile_sweeps.cu, inv_sqrt_rn).
 INV_SQRT_TIES = 2 * 114
 
 
 def inv_sqrt_mismatches(device: torch.device) -> int:
-    """How many float32 values in [2^-100, inf) the table sweep's one-SFU
-    1 / sqrt rounds differently from IEEE sqrt and division, every one of
-    them tried on `device`; the sweep's agreement with its plain version
-    rests on no more than INV_SQRT_TIES."""
+    """How many float32 values in [2^-100, inf) the far and table sweeps'
+    one-SFU 1 / sqrt rounds differently from IEEE sqrt and division, every
+    one of them tried on `device`; the sweeps' agreement with their plain
+    versions rests on no more than INV_SQRT_TIES."""
     bad = torch.zeros(1, dtype=torch.int64, device=device)
     rc = build.load("tile_sweeps").nbody_inv_sqrt_check(
         (127 - 100) << 23, 0x7F800000, bad.data_ptr(),
@@ -128,3 +161,18 @@ def inv_sqrt_mismatches(device: torch.device) -> int:
     if rc != 0:
         raise RuntimeError(f"inv_sqrt check launch failed: CUDA error {rc}")
     return int(bad)
+
+
+def inv_sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The sweeps' one-SFU 1 / sqrt of each element of a float32 CUDA
+    tensor (to trace a far-sweep mismatch to a tie)."""
+    if x.device.type != "cuda":
+        raise ValueError("inv_sqrt_rn runs on a CUDA tensor")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    rc = build.load("tile_sweeps").nbody_inv_sqrt_eval(
+        check(x, torch.float32, x.shape, "x"), x.numel(), out.data_ptr(),
+        stream(x))
+    if rc != 0:
+        raise RuntimeError(f"inv_sqrt_rn launch failed: CUDA error {rc}")
+    return out
