@@ -5,7 +5,13 @@
 
 Builds the CUDA kernels from nbody_tpu_torch/csrc (one nvcc per source),
 holds each force kernel against its plain PyTorch version at two 50k-body
-geometries and at the shapes of the main path, then drives the paths of
+geometries and at the shapes of the main path (the far sweep bit for bit:
+every target that differs from plain in any bit is traced to a tie of the
+one-SFU 1 / sqrt, or the run fails), then [far edges]: the far sweep bit
+for bit at edge counts (n off any tile size, 0, 1, 7 and all live rows,
+a live count past the rows, massless pads, the live list past one staged
+chunk, the ensemble's and the main path's sizes), each timed against its
+20-op bound and its arithmetic's ceiling.  Then it drives the paths of
 the v5_bench preset (N = 1,000,000, force_tile 512, no_ss) with the
 launch counts zeroed before each and read after it:
   [main]   the per-step rebuild, ``Simulation(cfg).step``: one warm-up
@@ -22,9 +28,13 @@ launch counts zeroed before each and read after it:
            32-step run and of inner steps (at most one per rebuild, none
            in an inner step), and
            profiles of one 32-step chunk and of one inner step;
+           [far ceiling] lines give the far sweep's time at the 1M state,
+           on the skinned bands and on rank 0's slab against its 20-op
+           bound and its ceiling (pairs x 4 quarter-rate operations over
+           16 lanes x SMs x the maximum SM clock) beside PR 6's time;
   [probe]  ``nbody_tpu_torch.tools.prof_mxu`` at its own shape, the panel
            sweep kernel in its three variants, each held against its plain
-           version;
+           version, its time beside its bound and PR 6's time;
   [reference] ``Simulation(cfg, method="barnes_hut_reference")``, one step
            of the rope-walk oracle from the IC (made with no device named:
            CUDA by default), against a float64 direct sum and the
@@ -65,6 +75,7 @@ import functools
 import io as io_module
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -262,7 +273,6 @@ def far_ceiling_report(label, ms, bound, pairs, pr6_ms):
         f"{torch.cuda.get_device_properties(DEVICE).multi_processor_count} "
         f"SMs x {sm_clock_mhz():.0f} MHz), {100 * ceil / ms:.1f}% of it "
         f"reached")
-    return ceil
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -702,6 +712,50 @@ def probe_phase():
             "max_rel_diff_vs_vpu": res["diff"].get(name),
         })
     return rows
+
+
+# kernel (library, mangled-name fragment) whose pair loop [sass] reads
+SASS_KERNELS = {
+    "far_sweep<2>": ("tile_sweeps", "far_sweep_kernelILi2E"),
+    "far_sweep<1>": ("tile_sweeps", "far_sweep_kernelILi1E"),
+    "table_sweep<4>": ("tile_sweeps", "table_sweep_kernelILi4E"),
+    "near_span<4>": ("tile_sweeps", "near_span_kernelILi4E"),
+    "panel_vpu": ("panel", "panel_sweep_kernelILi0E"),
+    "panel_mxu": ("panel", "panel_sweep_kernelILi1E"),
+    "panel_mxu_c": ("panel", "panel_sweep_kernelILi2E"),
+}
+
+
+def sass_report():
+    """[sass]: each kernel's pair loop as the card runs it, from
+    `cuobjdump -sass` of the built library: the backward branch whose body
+    holds the most MUFU operations, its instructions per pair (one MUFU.RSQ
+    a pair) and its opcode counts.  Instructions a pair over 128 lanes per
+    SM per clock bound a kernel that issue limits."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    dumps = {}
+    for name, (lib, frag) in SASS_KERNELS.items():
+        if lib not in dumps:
+            dumps[lib] = subprocess.run(
+                [tool, "-sass", str(build.library_path(lib))],
+                capture_output=True, text=True, check=True).stdout
+        func = [f for f in dumps[lib].split("Function : ")[1:]
+                if frag in f.split("\n")[0]][0]
+        ins = [(int(a, 16), op.strip()) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+        loops = [(int(t, 16), a) for a, op in ins
+                 for t in re.findall(r"BRA\s.*?0x([0-9a-f]+)", op)
+                 if int(t, 16) < a]
+        body = max(([op for a, op in ins if lo <= a <= hi]
+                    for lo, hi in loops),
+                   key=lambda b: sum("MUFU" in op for op in b))
+        pairs = sum("MUFU.RSQ" in op for op in body)
+        ops = collections.Counter(
+            re.sub(r"^@!?U?P\w+\s+", "", op).split()[0].split(".")[0]
+            for op in body)
+        log(f"[sass] {name}: pair loop of {len(body)} instructions for "
+            f"{pairs} pairs, {len(body) / pairs:.2f} a pair; " + ", ".join(
+                f"{k} {v / pairs:.2f}" for k, v in ops.most_common(8)))
 
 
 # --- this slice's entry points: the rope-walk oracle, the command line,
@@ -1536,6 +1590,7 @@ def main() -> int:
     tile_order_report("kernels main", bands, tables)
 
     rows += probe_phase()
+    sass_report()
 
     # the initial conditions with no device named: CUDA by default
     ic = make_initial_state(cfg)

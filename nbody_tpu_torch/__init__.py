@@ -3,8 +3,8 @@
 The Barnes-Hut pipeline of nbody_tpu (Morton sort, adaptive octree
 cells, band classification, per-tile tables) and its adaptive band-reuse
 runner in PyTorch, with every Pallas kernel rewritten as a hand CUDA
-kernel for Hopper (csrc/forces.cu: the far sweep; csrc/tile_sweeps.cu:
-the table and near-span sweeps; csrc/panel.cu: the panel probe of
+kernel for Hopper (csrc/tile_sweeps.cu: the far, table and near-span
+sweeps; csrc/panel.cu: the panel probe of
 tools/_prof_mxu.py), and around it the rope-walk oracle, dumps and
 checkpoints, the renderer, the live viewer and the command line
 (``python -m nbody_tpu_torch``).  Module names mirror nbody_tpu's.

@@ -17,18 +17,27 @@
 // sum taken source by source in order, and S is formed in the kernel's
 // own body with FMAs; a tensor-core (mma) version of S is later work.
 //
-// Bound: the FP32 pipe and the issue rate.  The bound counts 19 (vpu) or
-// 20 FP32 operations a pair; with fused multiply-adds a pair is 13 (vpu)
-// or 14 FP32 instructions and one SFU rsqrt, so about 70% of that bound
-// is the most this arithmetic can reach.  What the design does about it:
-//   * kTargets targets a thread (a panel is one block of kTile / kTargets
-//     threads), so one 16-byte broadcast shared-memory load of a source
-//     (x, y, z, m) feeds kTargets pairs and the loop's overhead is shared;
+// Bound: the issue rate (one warp instruction per clock per SM
+// sub-partition).  The bound counts 19 (vpu) or 20 FP32 operations a pair;
+// with fused multiply-adds a pair is 13 (vpu) or 14 FP32 instructions and
+// one SFU rsqrt, and rsqrtf's check for a denormal argument (a compare
+// and two predicated multiplies, never taken here: the argument is at
+// least soft) adds three, so about 17-19 instructions a pair are issued
+// and a bit over half of the bound is the most this arithmetic can reach.
+// What the design does about the rest:
+//   * kTargets = 4 targets a thread (a panel is one block of 64 threads),
+//     so one 16-byte broadcast shared-memory load of a source (x, y, z, m)
+//     feeds four pairs and the loop's overhead is shared (two targets a
+//     thread at 128 threads measured slower in every variant);
 //   * the sources of a chunk are staged as float4 in shared memory through
 //     a two-stage cp.async ring, so chunk c + 1 is in flight while chunk c
-//     is swept, with one barrier pair per chunk;
+//     is swept, with one barrier pair per chunk (stages of half a chunk,
+//     which fit twice the blocks on an SM, measured no faster);
 //   * the pair loop is unrolled by kUnroll with no remainder (a chunk is
 //     1024 sources).
+// Each target's sums take the same operations in the same order as the
+// one-target-a-thread kernel this replaced, so the output is bit-equal
+// to that kernel's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,8 +46,8 @@ namespace {
 
 constexpr int kTile = 256;    // targets per panel (_prof_mxu.B)
 constexpr int kChunk = 1024;  // sources per chunk (_prof_mxu.LC)
-constexpr int kStage = 512;   // sources per cp.async stage
-constexpr int kStagesPerChunk = kChunk / kStage;
+constexpr int kTargets = 4;   // targets per thread
+constexpr int kThreads = kTile / kTargets;
 constexpr int kUnroll = 8;
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
@@ -47,18 +56,19 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
-// One panel per block, R targets a thread: target r of thread tid is row
-// r * (kTile / R) + tid of the panel, so a warp's loads are contiguous.
-template <int V, int R>
-__global__ void __launch_bounds__(kTile / R)
+// One panel per block, R = kTargets targets a thread: target r of thread
+// tid is row r * kThreads + tid of the panel, so a warp's loads are
+// contiguous.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
     panel_sweep_kernel(const float* __restrict__ pos3,
                        const float* __restrict__ gx,
                        const float* __restrict__ gy,
                        const float* __restrict__ gz,
                        const float* __restrict__ gm, int n_chunks, float soft,
                        float* __restrict__ out) {
-  constexpr int kThreads = kTile / R;
-  __shared__ float4 buf[2][kStage];
+  constexpr int R = kTargets;
+  __shared__ float4 buf[2][kChunk];
   const int tid = threadIdx.x;
   const size_t row0 = (size_t)blockIdx.x * kTile;
   float p[R][3];
@@ -97,10 +107,10 @@ __global__ void __launch_bounds__(kTile / R)
     }
   }
 
-  auto stage = [&](int st) {
-    float4* dst = buf[st & 1];
-    const size_t j0 = (size_t)st * kStage;
-    for (int k = tid; k < kStage; k += kThreads) {
+  auto stage = [&](int chunk) {
+    float4* dst = buf[chunk & 1];
+    const size_t j0 = (size_t)chunk * kChunk;
+    for (int k = tid; k < kChunk; k += kThreads) {
       cp_async4(&dst[k].x, gx + j0 + k);
       cp_async4(&dst[k].y, gy + j0 + k);
       cp_async4(&dst[k].z, gz + j0 + k);
@@ -110,26 +120,18 @@ __global__ void __launch_bounds__(kTile / R)
   };
 
   float a[R][3] = {};
-  float s[R][4];
-  const int n_stages = n_chunks * kStagesPerChunk;
-  if (n_stages > 0) stage(0);
-  for (int st = 0; st < n_stages; ++st) {
-    if (st % kStagesPerChunk == 0) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-      }
-    }
-    if (st + 1 < n_stages) {
-      stage(st + 1);
+  if (n_chunks > 0) stage(0);
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    if (chunk + 1 < n_chunks) {
+      stage(chunk + 1);
       asm volatile("cp.async.wait_group 1;");
     } else {
       asm volatile("cp.async.wait_group 0;");
     }
     __syncthreads();
-    const float4* __restrict__ src = buf[st & 1];
-    for (int k = 0; k < kStage; k += kUnroll) {
+    const float4* __restrict__ src = buf[chunk & 1];
+    float s[R][4] = {};
+    for (int k = 0; k < kChunk; k += kUnroll) {
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const float4 q = src[k + u];
@@ -155,20 +157,18 @@ __global__ void __launch_bounds__(kTile / R)
         }
       }
     }
-    if ((st + 1) % kStagesPerChunk == 0) {    // the chunk's partial
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
+    for (int r = 0; r < R; ++r) {
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          if constexpr (V == 0) {
-            a[r][c] += s[r][c + 1];
-          } else {
-            a[r][c] += s[r][c + 1] - p[r][c] * s[r][0];
-          }
+      for (int c = 0; c < 3; ++c) {
+        if constexpr (V == 0) {
+          a[r][c] += s[r][c + 1];
+        } else {
+          a[r][c] += s[r][c + 1] - p[r][c] * s[r][0];
         }
       }
     }
-    __syncthreads();    // before stage st + 2 overwrites this buffer
+    __syncthreads();    // before chunk + 2 overwrites this stage
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -178,44 +178,31 @@ __global__ void __launch_bounds__(kTile / R)
   }
 }
 
-template <int R>
-void launch(int variant, const float* pos3, int tiles, const float* gx,
-            const float* gy, const float* gz, const float* gm, int n_chunks,
-            float soft, float* out, cudaStream_t s) {
-  constexpr int threads = kTile / R;
-  if (variant == 0) {
-    panel_sweep_kernel<0, R><<<tiles, threads, 0, s>>>(pos3, gx, gy, gz, gm,
-                                                       n_chunks, soft, out);
-  } else if (variant == 1) {
-    panel_sweep_kernel<1, R><<<tiles, threads, 0, s>>>(pos3, gx, gy, gz, gm,
-                                                       n_chunks, soft, out);
-  } else {
-    panel_sweep_kernel<2, R><<<tiles, threads, 0, s>>>(pos3, gx, gy, gz, gm,
-                                                       n_chunks, soft, out);
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
 // variant 0 vpu, 1 mxu, 2 mxu_c; pos3 [tiles, 256, 3], g* [n_src] with
-// n_src a multiple of 1024, out [tiles, 256, 3]; targets per thread 2 or 4.
+// n_src a multiple of 1024, out [tiles, 256, 3].
 int nbody_panel_sweep(int variant, const float* pos3, int tiles,
                       const float* gx, const float* gy, const float* gz,
                       const float* gm, int n_src, float soft, float* out,
-                      int targets, void* stream) {
-  if (n_src % kChunk != 0 || variant < 0 || variant > 2 ||
-      (targets != 2 && targets != 4)) {
+                      void* stream) {
+  if (n_src % kChunk != 0 || variant < 0 || variant > 2) {
     return (int)cudaErrorInvalidValue;
   }
   if (tiles > 0) {
     const int n_chunks = n_src / kChunk;
     cudaStream_t s = (cudaStream_t)stream;
-    if (targets == 4) {
-      launch<4>(variant, pos3, tiles, gx, gy, gz, gm, n_chunks, soft, out, s);
+    if (variant == 0) {
+      panel_sweep_kernel<0><<<tiles, kThreads, 0, s>>>(pos3, gx, gy, gz, gm,
+                                                       n_chunks, soft, out);
+    } else if (variant == 1) {
+      panel_sweep_kernel<1><<<tiles, kThreads, 0, s>>>(pos3, gx, gy, gz, gm,
+                                                       n_chunks, soft, out);
     } else {
-      launch<2>(variant, pos3, tiles, gx, gy, gz, gm, n_chunks, soft, out, s);
+      panel_sweep_kernel<2><<<tiles, kThreads, 0, s>>>(pos3, gx, gy, gz, gm,
+                                                       n_chunks, soft, out);
     }
   }
   return (int)cudaGetLastError();

@@ -56,10 +56,8 @@ LIBRARIES = {
         _PKG / "csrc" / "panel.cu",
         [],
         {
-            # variant, pos3, tiles, gx, gy, gz, gm, n_src, soft, out,
-            # targets, stream
-            "nbody_panel_sweep": [_I, _P, _I, _P, _P, _P, _P, _I, _F, _P, _I,
-                                  _P],
+            # variant, pos3, tiles, gx, gy, gz, gm, n_src, soft, out, stream
+            "nbody_panel_sweep": [_I, _P, _I, _P, _P, _P, _P, _I, _F, _P, _P],
         }),
 }
 

@@ -53,14 +53,13 @@ def far_geometry(n: int, sms: int) -> tuple:
     the most blocks: ceil(blocks / sms) rounds of one block per SM.  Takes
     two targets a thread (two pairs per staged source load) where the
     blocks fill those rounds to FAR_FILL, else one (twice the blocks, and
-    the most warps on each SM).  At n = 100,000 on 132 SMs, four a thread
-    would leave the second of two rounds half empty (196 blocks); two fill
-    391 of 396 slots."""
+    the most warps on each SM).  At n = 100,000 on 132 SMs two a thread
+    give 391 blocks, 391 of the 396 slots of three rounds."""
     for r in FAR_TARGETS:
         blocks = max(1, -(-n // (r * FAR_THREADS)))
         if blocks / (sms * -(-blocks // sms)) >= FAR_FILL:
-            return r, blocks
-    return 1, blocks
+            break
+    return r, blocks
 
 
 @functools.lru_cache(maxsize=None)

@@ -18,7 +18,6 @@ from nbody_tpu_torch.ops.cuda.launch import check, launched, on_cpu, stream
 from nbody_tpu_torch.ops import panel as _plain
 
 LAUNCHES = {f"panel_{v}": 0 for v in _plain.VARIANTS}
-TARGETS = 4     # targets per thread
 
 
 def reset_launches() -> None:
@@ -44,6 +43,6 @@ def sweep(variant: str, pos3: torch.Tensor, gx: torch.Tensor,
     rc = build.load("panel").nbody_panel_sweep(
         _plain.VARIANTS.index(variant),
         check(pos3, f32, (t, _plain.B, 3), "pos3"), t, *srcs, g, _plain.SOFT,
-        out.data_ptr(), TARGETS, stream(pos3))
+        out.data_ptr(), stream(pos3))
     launched(rc, f"panel_{variant}", LAUNCHES)
     return out

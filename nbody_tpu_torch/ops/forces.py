@@ -65,7 +65,8 @@ _BIG = torch.iinfo(torch.int32).max // 2 * 2
 def _sum_terms(w, dx, dy, dz):
     """Sum the force terms w*d over the last axis: each term rounded in
     the inputs' precision, the sum taken in float64 (the band sweeps'
-    terms cancel across bands; see the numerics note in csrc/forces.cu)."""
+    terms cancel across bands; see the numerics note in
+    csrc/tile_sweeps.cu)."""
     return torch.stack([(w * d).sum(dim=-1, dtype=torch.float64)
                         for d in (dx, dy, dz)], dim=-1).to(w.dtype)
 

@@ -109,7 +109,7 @@ def test_bench_render_and_info(tmp_path, capsys):
     out = capsys.readouterr().out
     assert f"torch {torch.__version__}" in out
     assert "native runtime: available" in out
-    assert "kernel library forces" in out
+    assert "kernel library tile_sweeps" in out
 
 
 def test_run_defaults_to_cuda_and_raises_without_it(monkeypatch):

@@ -128,3 +128,25 @@ def test_entry_point(monkeypatch, capsys):
     assert set(res["diff"]) == {"mxu", "mxu_c"}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert prof_mxu.main([]) == 1
+
+
+@pytest.mark.parametrize("variant", panel.VARIANTS)
+@pytest.mark.parametrize("chunks", [1, 2])
+def test_plain_sweep_matches_jax_panels_by_chunk(jtool, variant, chunks):
+    """The plain sweep at one and at two chunks of sources against the JAX
+    tool's panel applied chunk by chunk and added in chunk order (what its
+    Pallas sweep computes), on the same numpy inputs."""
+    pos3, gx, gy, gz, gm = _inputs(2, chunks * panel.LC, seed=10 + chunks)
+    jpanel = getattr(jtool, f"_panel_{variant}")
+    want = np.zeros(pos3.shape, np.float32)
+    for t in range(pos3.shape[0]):
+        for c in range(0, chunks * panel.LC, panel.LC):
+            want[t] += np.asarray(jpanel(
+                jnp.asarray(pos3[t]),
+                *(jnp.asarray(q[c:c + panel.LC]).reshape(1, -1)
+                  for q in (gx, gy, gz, gm))))
+    got = panel.sweep(panel.PANELS[variant],
+                      *(torch.from_numpy(x) for x in (pos3, gx, gy, gz, gm)))
+    assert got.shape == pos3.shape
+    assert _rel_to_scale(got.numpy(), want, variant,
+                         (pos3, gx, gy, gz, gm)) < 1e-6

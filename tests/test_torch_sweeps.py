@@ -4,6 +4,7 @@ as tests/test_forces.py runs them), on the JAX package's own band
 structures; the kernel wrappers' CPU dispatch."""
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -161,3 +162,116 @@ def test_wrappers_reject_tensors_off_cpu_and_cuda(small):
         kern.far_sweep(meta, p["ss"], tc)
     with pytest.raises(ValueError, match="CUDA"):
         kern.table_sweep(meta, p["tables"], tc)
+
+
+# --- the far sweep at the counts its kernel must serve ----------------------
+
+# (targets, super-super rows S, live count, massless rows ending the live
+# prefix): n off any tile size, no / one / seven live rows, every row
+# live, a live count past S (the kernel clamps it), massless pads
+FAR_EDGES = [
+    (3001, 192, 105, 0),
+    (1024, 192, 0, 0),
+    (1024, 192, 1, 0),
+    (1024, 192, 7, 0),
+    (1024, 192, 192, 0),
+    (1024, 192, 250, 0),
+    (1024, 192, 120, 16),
+    (3001, 64, 64, 8),
+]
+
+
+def _far_edge_inputs(n, s, live, pads, seed):
+    """numpy targets and super-super rows: a thin disk of radius 1700,
+    positive masses on the live rows but their last `pads`, rows past the
+    live count massless at the origin (as the band build pads them)."""
+    rng = np.random.default_rng(seed)
+
+    def disk(m):
+        x = rng.uniform(-1700, 1700, (m, 3)).astype(np.float32)
+        x[:, 2] *= np.float32(0.05)
+        return x
+
+    pos, com = disk(n), disk(s)
+    gmass = rng.uniform(1.0, 1e4, s).astype(np.float32)
+    k = min(live, s)
+    gmass[k - pads:k] = 0
+    gmass[k:] = 0
+    com[k:] = 0
+    return pos, com, gmass
+
+
+@pytest.mark.parametrize("n,s,live,pads", FAR_EDGES)
+def test_far_plain_matches_jax_at_edge_counts(n, s, live, pads):
+    """far_sweep_torch against far_sweep_jnp (its targets padded to whole
+    tiles of 64, which leaves the real targets' sums alone) and, where n is
+    whole tiles of 128, against far_sweep_pallas in interpret mode, which
+    reads the live count; the kernel wrapper on the CPU returns the plain
+    version and launches nothing."""
+    pos, com, gmass = _far_edge_inputs(n, s, live, pads, seed=n + s + live)
+    jc = JConfig(n=n, force_tile=128 if n % 128 == 0 else 64,
+                 use_pallas=n % 128 == 0,
+                 softening=PRESETS["v5_bench"].softening)
+    tc = config_from_dict(dataclasses.asdict(jc))
+    zero = np.zeros(s, np.float32)
+    jss = jforces.Supers(com=jnp.asarray(com), gmass=jnp.asarray(gmass),
+                         diam=jnp.asarray(zero), lo=jnp.asarray(com),
+                         hi=jnp.asarray(com), skin=jnp.asarray(zero),
+                         n_supers=jnp.asarray(live, jnp.int32))
+    tss = tforces.Supers(com=torch.from_numpy(com),
+                         gmass=torch.from_numpy(gmass),
+                         diam=torch.from_numpy(zero),
+                         lo=torch.from_numpy(com), hi=torch.from_numpy(com),
+                         skin=torch.from_numpy(zero),
+                         n_supers=torch.tensor(live, dtype=torch.int64))
+    tpos = torch.from_numpy(pos)
+    got = tforces.far_sweep_torch(tpos, tss, tc).numpy()
+    assert got.shape == (n, 3)
+    if live > 0:
+        assert np.abs(got).max() > 0
+    else:
+        assert not got.any()
+    pad = -n % jc.force_tile
+    jpos = jnp.asarray(np.concatenate([pos, np.zeros((pad, 3), np.float32)]))
+    np.testing.assert_allclose(got, np.asarray(
+        jforces.far_sweep_jnp(jpos, jss, jc))[:n], **TOL)
+    if n % 128 == 0:
+        np.testing.assert_allclose(got, np.asarray(
+            far_sweep_pallas(jnp.asarray(pos), jss, jc)), **TOL)
+    before = dict(kern.LAUNCHES)
+    torch.testing.assert_close(kern.far_sweep(tpos, tss, tc),
+                               torch.from_numpy(got), rtol=0, atol=0)
+    assert kern.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n", [1, 3001, 20_000, 50_001, 50_176, 100_000,
+                               500_224, 1_000_448, 4_001_792])
+def test_far_geometry_covers_every_target_once(n):
+    r, blocks = kern.far_geometry(n, 132)
+    assert r in kern.FAR_TARGETS
+    per_block = r * kern.FAR_THREADS
+    assert (blocks - 1) * per_block < n <= blocks * per_block
+
+
+def test_far_geometry_fills_the_last_round():
+    """Every block of the far sweep does the same work, so the launch lasts
+    ceil(blocks / SMs) rounds of one block per SM: at n = 100,000 (the
+    ensemble's bh_100k) on 132 SMs the last round is at least half full,
+    and at the main path's sizes the rounds are 90% full with two targets
+    a thread."""
+    sms = 132
+    r, blocks = kern.far_geometry(100_000, sms)
+    last = blocks - (-(-blocks // sms) - 1) * sms
+    assert (r, blocks) == (2, 391) and last >= sms / 2
+    for n in (500_224, 1_000_448, 4_001_792):
+        r, blocks = kern.far_geometry(n, sms)
+        assert r == 2
+        assert blocks / (sms * -(-blocks // sms)) >= kern.FAR_FILL
+    # too few targets to fill full rounds: one a thread, the most warps
+    assert kern.far_geometry(20_000, sms) == (1, 157)
+
+
+def test_far_block_is_the_kernels():
+    src = (Path(tforces.__file__).parents[1] / "csrc" /
+           "tile_sweeps.cu").read_text()
+    assert f"constexpr int kThreads = {kern.FAR_THREADS};" in src
