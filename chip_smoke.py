@@ -7,7 +7,8 @@ Builds the CUDA kernels from nbody_tpu_torch/csrc (one nvcc per source),
 holds each force kernel against its plain PyTorch version at two 50k-body
 geometries and at the shapes of the main path (the far sweep bit for bit:
 every target that differs from plain in any bit is traced to a tie of the
-one-SFU 1 / sqrt, or the run fails), then [far edges]: the far sweep bit
+one-SFU 1 / sqrt, its plain terms summed in list order giving both
+outputs, or the run fails), then [far edges]: the far sweep bit
 for bit at edge counts (n off any tile size, 0, 1, 7 and all live rows,
 a live count past the rows, massless pads, the live list past one staged
 chunk, the ensemble's and the main path's sizes), each timed against its
@@ -75,7 +76,6 @@ import functools
 import io as io_module
 import json
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -203,42 +203,67 @@ def compare(calls, label="", far_inputs=None):
     return res, differ
 
 
+def list_order_sum(terms):
+    """Sum of the rows of a [live, 3] float32 tensor in float64, one row
+    after another in list order (as the far kernel adds its terms),
+    rounded to float32."""
+    acc = [0.0, 0.0, 0.0]
+    for row in terms.double().tolist():
+        acc = [a + t for a, t in zip(acc, row)]
+    return torch.tensor(acc, dtype=torch.float64).float()
+
+
 def far_bit_check(label, k_out, p_out, pos, ss, cfg):
     """The far sweep's contract: its output is bit-equal to the plain
-    version's except at targets where some argument |d|^2 + soft (computed
-    as the plain version computes it) is a tie of the one-SFU 1 / sqrt
-    (inv_sqrt_rn differs there from IEEE sqrt and division).  Logs every
-    differing target with its tie arguments; raises if one is not traced
-    to a tie.  Returns the number of differing targets."""
+    version's except at targets where some argument |d|^2 + soft is a tie
+    of the one-SFU 1 / sqrt (inv_sqrt_rn differs there from IEEE sqrt and
+    division), and the tie is the cause.  For each differing target the
+    plain terms are computed again on the card as the plain version
+    computes them and summed in list order in float64: with IEEE 1 / sqrt
+    that sum must be the plain output bit for bit (the summation order
+    does not show at this target), and with inv_sqrt_rn put in at the tie
+    arguments alone it must be the kernel's output bit for bit.  Logs
+    every differing target with its tie arguments; raises if one is not
+    traced so.  Returns the number of differing targets."""
     bits = (k_out.view(torch.int32) != p_out.view(torch.int32)).any(dim=1)
     idx = torch.nonzero(bits).flatten().tolist()
     live = min(int(ss.n_supers), ss.gmass.shape[0])
-    com = ss.com[:live]
+    com, gmass = ss.com[:live], ss.gmass[:live]
     soft = forces.soft_term(cfg)
     untraced = []
     for i in idx:
-        dx = com[:, 0] - pos[i, 0]
-        dy = com[:, 1] - pos[i, 1]
-        dz = com[:, 2] - pos[i, 2]
-        x = dx * dx + dy * dy + dz * dz + soft
-        ties = torch.nonzero(kern.inv_sqrt_rn(x).view(torch.int32)
-                             != (1.0 / torch.sqrt(x)).view(torch.int32))
-        ties = ties.flatten().tolist()
+        d = com - pos[i]
+        x = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2] + soft
+        ieee = 1.0 / torch.sqrt(x)
+        tie = kern.inv_sqrt_rn(x).view(torch.int32) != ieee.view(torch.int32)
+        sums = []
+        for inv in (ieee, torch.where(tie, kern.inv_sqrt_rn(x), ieee)):
+            w = gmass * (inv * inv * inv)
+            sums.append(list_order_sum(w[:, None] * d))
+        as_plain = bool((sums[0].view(torch.int32)
+                         == p_out[i].cpu().view(torch.int32)).all())
+        as_kernel = bool((sums[1].view(torch.int32)
+                          == k_out[i].cpu().view(torch.int32)).all())
+        ties = torch.nonzero(tie).flatten().tolist()
         args = ", ".join(f"source {j}: {float(x[j]):.9g} "
                          f"(0x{int(x[j:j + 1].view(torch.int32)) & 0xFFFFFFFF:08x})"
                          for j in ties)
         log(f"[{label}] far_sweep target {i} differs from plain "
             f"(kernel {k_out[i].tolist()}, plain {p_out[i].tolist()}); "
             f"inv_sqrt_rn ties among its arguments |d|^2 + soft: "
-            f"{args or 'none'}")
-        if not ties:
+            f"{args or 'none'}; list-order float64 sum with IEEE terms "
+            f"{'is' if as_plain else 'is NOT'} the plain output, with "
+            f"inv_sqrt_rn at the ties {'is' if as_kernel else 'is NOT'} "
+            f"the kernel's")
+        if not (ties and as_plain and as_kernel):
             untraced.append(i)
     log(f"[{label}] far_sweep bit_equal: {pos.shape[0] - len(idx)} of "
         f"{pos.shape[0]} targets bit-equal to plain, {len(idx)} differ "
         f"({len(idx) - len(untraced)} traced to inv_sqrt_rn ties)")
     if untraced:
         raise RuntimeError(f"[{label}] far_sweep differs from plain at "
-                           f"targets {untraced[:20]} with no inv_sqrt_rn tie")
+                           f"targets {untraced[:20]} not traced to an "
+                           f"inv_sqrt_rn tie")
     return len(idx)
 
 
@@ -259,6 +284,16 @@ def ceiling_ms(pairs):
     sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
     rate = QUARTER_LANES * sms * sm_clock_mhz() * 1e6
     return 1e3 * QUARTER_OPS_PER_PAIR * pairs / rate
+
+
+def ceiling_note(k, pairs, ms):
+    """For the far and table sweeps, which share the rounded arithmetic,
+    their ceiling and the share of it reached (for the log lines)."""
+    if k not in ("far_sweep", "table_sweep"):
+        return ""
+    ceil = ceiling_ms(pairs)
+    return (f"; arithmetic ceiling {ceil:.4f} ms, {100 * ceil / ms:.1f}% of "
+            f"it reached")
 
 
 def far_ceiling_report(label, ms, bound, pairs, pr6_ms):
@@ -600,12 +635,12 @@ def runner_phase(cfg, steps, chunk=32):
     bnd = bounds_ms(cfg, pos, ss, bands, tables)
     timing = {}
     for k, (rel, abs_err) in errs.items():
-        timing[k] = (event_ms(calls[k][0], 10), bnd[k][0],
-                     ceiling_ms(bnd[k][2]))
+        timing[k] = (event_ms(calls[k][0], 10), bnd[k][0])
         log(f"[kernels runner] {k}: rel_err {rel:.3e} (bound "
             f"{BOUNDS[k]:.0e}), max abs err {abs_err:.3e}; kernel "
             f"{timing[k][0]:.3f} ms, bound {bnd[k][0]:.3f} ms ({bnd[k][1]}, "
-            f"{100 * bnd[k][0] / timing[k][0]:.1f}% of it reached)")
+            f"{100 * bnd[k][0] / timing[k][0]:.1f}% of it reached)"
+            + ceiling_note(k, bnd[k][2], timing[k][0]))
         if not rel <= BOUNDS[k]:
             raise RuntimeError(f"{k} on the runner's bands: error {rel} > "
                                f"{BOUNDS[k]}")
@@ -712,50 +747,6 @@ def probe_phase():
             "max_rel_diff_vs_vpu": res["diff"].get(name),
         })
     return rows
-
-
-# kernel (library, mangled-name fragment) whose pair loop [sass] reads
-SASS_KERNELS = {
-    "far_sweep<2>": ("tile_sweeps", "far_sweep_kernelILi2E"),
-    "far_sweep<1>": ("tile_sweeps", "far_sweep_kernelILi1E"),
-    "table_sweep<4>": ("tile_sweeps", "table_sweep_kernelILi4E"),
-    "near_span<4>": ("tile_sweeps", "near_span_kernelILi4E"),
-    "panel_vpu": ("panel", "panel_sweep_kernelILi0E"),
-    "panel_mxu": ("panel", "panel_sweep_kernelILi1E"),
-    "panel_mxu_c": ("panel", "panel_sweep_kernelILi2E"),
-}
-
-
-def sass_report():
-    """[sass]: each kernel's pair loop as the card runs it, from
-    `cuobjdump -sass` of the built library: the backward branch whose body
-    holds the most MUFU operations, its instructions per pair (one MUFU.RSQ
-    a pair) and its opcode counts.  Instructions a pair over 128 lanes per
-    SM per clock bound a kernel that issue limits."""
-    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    dumps = {}
-    for name, (lib, frag) in SASS_KERNELS.items():
-        if lib not in dumps:
-            dumps[lib] = subprocess.run(
-                [tool, "-sass", str(build.library_path(lib))],
-                capture_output=True, text=True, check=True).stdout
-        func = [f for f in dumps[lib].split("Function : ")[1:]
-                if frag in f.split("\n")[0]][0]
-        ins = [(int(a, 16), op.strip()) for a, op in re.findall(
-            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
-        loops = [(int(t, 16), a) for a, op in ins
-                 for t in re.findall(r"BRA\s.*?0x([0-9a-f]+)", op)
-                 if int(t, 16) < a]
-        body = max(([op for a, op in ins if lo <= a <= hi]
-                    for lo, hi in loops),
-                   key=lambda b: sum("MUFU" in op for op in b))
-        pairs = sum("MUFU.RSQ" in op for op in body)
-        ops = collections.Counter(
-            re.sub(r"^@!?U?P\w+\s+", "", op).split()[0].split(".")[0]
-            for op in body)
-        log(f"[sass] {name}: pair loop of {len(body)} instructions for "
-            f"{pairs} pairs, {len(body) / pairs:.2f} a pair; " + ", ".join(
-                f"{k} {v / pairs:.2f}" for k, v in ops.most_common(8)))
 
 
 # --- this slice's entry points: the rope-walk oracle, the command line,
@@ -1147,8 +1138,7 @@ def shard_rank(mesh, cfg, n_steps):
             k: {"rel_err": errs[k][0], "max_abs_err": errs[k][1],
                 "ms": event_ms(calls[k][0], 10), "plain_ms": event_ms(
                     calls[k][1], 2), "bound_ms": bnd[k][0],
-                "bound_by": bnd[k][1], "pairs": bnd[k][2],
-                "ceiling_ms": ceiling_ms(bnd[k][2])} for k in calls}
+                "bound_by": bnd[k][1], "pairs": bnd[k][2]} for k in calls}
         res["kernels"]["far_sweep"]["bit_differ"] = differ
         # near_span on the halo + fetch sources and rebased windows:
         # against its plain version, and against itself on the gather
@@ -1336,7 +1326,8 @@ def shard_phase():
             f"{BOUNDS[k]:.0e}), max abs err {kr['max_abs_err']:.3e}; kernel "
             f"{kr['ms']:.3f} ms, plain {kr['plain_ms']:.3f} ms, bound "
             f"{kr['bound_ms']:.3f} ms ({kr['bound_by']}, "
-            f"{100 * kr['bound_ms'] / kr['ms']:.1f}% of it reached)")
+            f"{100 * kr['bound_ms'] / kr['ms']:.1f}% of it reached)"
+            + ceiling_note(k, kr["pairs"], kr["ms"]))
         if not kr["rel_err"] <= BOUNDS[k]:
             raise RuntimeError(f"{k} on the sharded slab: error "
                                f"{kr['rel_err']} > {BOUNDS[k]}")
@@ -1348,8 +1339,6 @@ def shard_phase():
             "plain_ms": kr["plain_ms"], "bound_ms": kr["bound_ms"],
             "bound_by": kr["bound_by"], "library_ms": None,
             "rel_err": kr["rel_err"]})
-        if k in ("far_sweep", "table_sweep"):
-            rows[-1]["ceiling_ms"] = kr["ceiling_ms"]
         if k == "far_sweep":
             rows[-1]["bit_differ"] = kr["bit_differ"]
             far_ceiling_report("shard", kr["ms"], kr["bound_ms"], kr["pairs"],
@@ -1456,8 +1445,6 @@ def far_edges_phase(cfg):
                                f"{kern.LAUNCHES['far_sweep']}")
         p_out = forces.far_sweep_torch(pos, ss, cfg)
         sync()
-        r, blocks = kern.far_geometry(n, torch.cuda.get_device_properties(
-            DEVICE).multi_processor_count)
         total += far_bit_check(f"far edges {label}", k_out, p_out, pos, ss,
                                cfg)
         pairs = n * min(live, s)
@@ -1465,8 +1452,8 @@ def far_edges_phase(cfg):
         bound = 1e3 * FLOPS_PER_PAIR * pairs / PEAK_FP32
         ceil = ceiling_ms(pairs)
         log(f"[far edges] {label}: n={n}, S={s}, n_live={live}, {pads} "
-            f"massless pads in the live prefix; {r} targets a thread, "
-            f"{blocks} blocks; max |plain| {float(p_out.abs().max()):.4e}; "
+            f"massless pads in the live prefix; {kern.far_blocks(n)} blocks; "
+            f"max |plain| {float(p_out.abs().max()):.4e}; "
             f"kernel {ms:.4f} ms, 20-op bound {bound:.4f} ms "
             f"({100 * bound / ms:.1f}%), arithmetic ceiling {ceil:.4f} ms "
             f"({100 * ceil / ms:.1f}%)")
@@ -1574,10 +1561,8 @@ def main() -> int:
         })
         log(f"[kernels main] {k}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
             f"bound {bnd[k][0]:.3f} ms ({bnd[k][1]}, "
-            f"{100 * bnd[k][0] / k_ms:.1f}% of it reached), rel_err {rel:.3e}")
-        if k in ("far_sweep", "table_sweep"):
-            rows[-1].update(ceiling_ms=ceiling_ms(bnd[k][2]),
-                            ceiling_ms_runner=runner_ms[k][2])
+            f"{100 * bnd[k][0] / k_ms:.1f}% of it reached), rel_err {rel:.3e}"
+            + ceiling_note(k, bnd[k][2], k_ms))
         if k == "far_sweep":
             rows[-1].update(bit_differ_main=main_differ,
                             bit_differ_runner=runner_differ,
@@ -1590,7 +1575,6 @@ def main() -> int:
     tile_order_report("kernels main", bands, tables)
 
     rows += probe_phase()
-    sass_report()
 
     # the initial conditions with no device named: CUDA by default
     ic = make_initial_state(cfg)

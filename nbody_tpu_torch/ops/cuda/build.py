@@ -36,9 +36,9 @@ LIBRARIES = {
         _PKG / "csrc" / "tile_sweeps.cu",
         [],
         {
-            # pos, n, com, gmass, s_cap, n_live (int64), soft, acc, r,
-            # blocks, stream
-            "nbody_far_sweep": [_P, _I, _P, _P, _I, _P, _F, _P, _I, _I, _P],
+            # pos, n, com, gmass, s_cap, n_live (int64), soft, acc, blocks,
+            # stream
+            "nbody_far_sweep": [_P, _I, _P, _P, _I, _P, _F, _P, _I, _P],
             # pos, tiles, b, tx, ty, tz, tm, rows, near_cnt, row_cnt,
             # near_cap, order, soft, acc, stream
             "nbody_table_sweep": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I,

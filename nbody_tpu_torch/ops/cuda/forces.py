@@ -5,15 +5,12 @@ Each wrapper takes the same arguments as its plain PyTorch version in
 ``nbody_tpu_torch.ops.forces``.  On CPU tensors it returns the plain
 version; on CUDA tensors it checks device, dtype, shape and contiguity,
 allocates the output (and, for the two per-tile kernels, the
-heaviest-first tile order; for the far sweep, picks its launch geometry
-with `far_geometry`), launches the kernel on the current stream and
-raises if the launch failed.  ``LAUNCHES`` counts kernel launches per
+heaviest-first tile order), launches the kernel on the current stream
+and raises if the launch failed.  ``LAUNCHES`` counts kernel launches per
 wrapper, so a run can show that its path went through the kernels.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 
@@ -38,33 +35,16 @@ def heavy_first(work: torch.Tensor) -> torch.Tensor:
     return torch.argsort(work, descending=True, stable=True)
 
 
-# The far kernel's block (tile_sweeps.cu kThreads) and the targets per
-# thread it takes, most first.
+# The far kernel's block (tile_sweeps.cu kThreads) and targets per thread
+# (kFarTargets).
 FAR_THREADS = 128
-FAR_TARGETS = (2, 1)
-# share of the rounds of one block per SM that the far blocks must fill
-FAR_FILL = 0.9
+FAR_TARGETS = 2
 
 
-def far_geometry(n: int, sms: int) -> tuple:
-    """(targets per thread, blocks) of the far sweep for n targets on a card
-    of `sms` SMs.  Every target sweeps the same live list, so every block
-    does the same work and the launch lasts as long as the SM that is given
-    the most blocks: ceil(blocks / sms) rounds of one block per SM.  Takes
-    two targets a thread (two pairs per staged source load) where the
-    blocks fill those rounds to FAR_FILL, else one (twice the blocks, and
-    the most warps on each SM).  At n = 100,000 on 132 SMs two a thread
-    give 391 blocks, 391 of the 396 slots of three rounds."""
-    for r in FAR_TARGETS:
-        blocks = max(1, -(-n // (r * FAR_THREADS)))
-        if blocks / (sms * -(-blocks // sms)) >= FAR_FILL:
-            break
-    return r, blocks
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def far_blocks(n: int) -> int:
+    """Blocks of the far sweep for n targets: one per FAR_TARGETS *
+    FAR_THREADS targets, the last one masked."""
+    return max(1, -(-n // (FAR_TARGETS * FAR_THREADS)))
 
 
 def far_sweep(pos_s: torch.Tensor, supers: "_forces.Supers",
@@ -77,13 +57,13 @@ def far_sweep(pos_s: torch.Tensor, supers: "_forces.Supers",
     n = pos_s.shape[0]
     s = supers.gmass.shape[0]
     out = torch.empty((n, 3), dtype=f32, device=pos_s.device)
-    r, blocks = far_geometry(n, _sm_count(pos_s.device))
     rc = build.load("tile_sweeps").nbody_far_sweep(
         check(pos_s, f32, (n, 3), "pos"), n,
         check(supers.com, f32, (s, 3), "com"),
         check(supers.gmass, f32, (s,), "gmass"), s,
         check(supers.n_supers, torch.int64, (), "n_supers"),
-        _forces.soft_term(cfg), out.data_ptr(), r, blocks, stream(pos_s))
+        _forces.soft_term(cfg), out.data_ptr(), far_blocks(n),
+        stream(pos_s))
     launched(rc, "far_sweep", LAUNCHES)
     return out
 

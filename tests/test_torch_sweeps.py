@@ -247,31 +247,25 @@ def test_far_plain_matches_jax_at_edge_counts(n, s, live, pads):
 @pytest.mark.parametrize("n", [1, 3001, 20_000, 50_001, 50_176, 100_000,
                                500_224, 1_000_448, 4_001_792])
 def test_far_geometry_covers_every_target_once(n):
-    r, blocks = kern.far_geometry(n, 132)
-    assert r in kern.FAR_TARGETS
-    per_block = r * kern.FAR_THREADS
+    """The far sweep's grid holds every target once: its last block is
+    the only one with masked lanes."""
+    blocks = kern.far_blocks(n)
+    per_block = kern.FAR_TARGETS * kern.FAR_THREADS
     assert (blocks - 1) * per_block < n <= blocks * per_block
 
 
 def test_far_geometry_fills_the_last_round():
-    """Every block of the far sweep does the same work, so the launch lasts
-    ceil(blocks / SMs) rounds of one block per SM: at n = 100,000 (the
-    ensemble's bh_100k) on 132 SMs the last round is at least half full,
-    and at the main path's sizes the rounds are 90% full with two targets
-    a thread."""
+    """Every block of the far sweep does the same work: at n = 100,000
+    (the ensemble's bh_100k) on 132 SMs the last of the rounds of one
+    block per SM is at least half full (127 of 132)."""
     sms = 132
-    r, blocks = kern.far_geometry(100_000, sms)
+    blocks = kern.far_blocks(100_000)
     last = blocks - (-(-blocks // sms) - 1) * sms
-    assert (r, blocks) == (2, 391) and last >= sms / 2
-    for n in (500_224, 1_000_448, 4_001_792):
-        r, blocks = kern.far_geometry(n, sms)
-        assert r == 2
-        assert blocks / (sms * -(-blocks // sms)) >= kern.FAR_FILL
-    # too few targets to fill full rounds: one a thread, the most warps
-    assert kern.far_geometry(20_000, sms) == (1, 157)
+    assert (blocks, last) == (391, 127) and last >= sms / 2
 
 
 def test_far_block_is_the_kernels():
     src = (Path(tforces.__file__).parents[1] / "csrc" /
            "tile_sweeps.cu").read_text()
     assert f"constexpr int kThreads = {kern.FAR_THREADS};" in src
+    assert f"constexpr int kFarTargets = {kern.FAR_TARGETS};" in src

@@ -151,3 +151,90 @@ def test_nothing_selects_a_kernel_variant():
 
 def test_near_bound_is_chip_smokes():
     assert _chip_smoke().BOUNDS["near_span"] == NEAR_BOUND
+
+
+# a cuobjdump -sass listing cut down to two functions: a loop of 2 pairs
+# (one MUFU.RSQ each) at 0x0010-0x0060 and a loop with no MUFU after it
+SASS = """
+        Function : _ZN12_GLOBAL__N_116far_sweep_kernelEPKfi
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   FADD R2, R3, -R4 ;
+        /*0020*/                   MUFU.RSQ R5, R2 ;
+        /*0030*/              @!P0 FMUL R6, R5, R5 ;
+        /*0040*/                   MUFU.RSQ R7, R2 ;
+        /*0050*/                   F2F.F64.F32 R8, R6 ;
+        /*0060*/               @P1 BRA 0x10 ;
+        /*0070*/                   IADD3 R9, R9, 0x1, RZ ;
+        /*0080*/               @P2 BRA 0x70 ;
+        /*0090*/                   EXIT ;
+        Function : _ZN12_GLOBAL__N_118table_sweep_kernelILi4EEvPKf
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_sass_tool_reads_the_pair_loop():
+    """tools/sass.py, which PERF.md's instructions-a-pair counts come
+    from, on a listing made up here: it splits the functions, takes the
+    loop with the MUFU operations and counts per pair."""
+    from nbody_tpu_torch.tools import sass
+
+    funcs = sass.functions(SASS)
+    assert [n for n in funcs if sass.KERNELS["far_sweep"][1] in n] == [
+        "_ZN12_GLOBAL__N_116far_sweep_kernelEPKfi"]
+    body = sass.pair_loop(funcs["_ZN12_GLOBAL__N_116far_sweep_kernelEPKfi"])
+    assert body[0] == "FADD R2, R3, -R4" and body[-1] == "BRA 0x10"
+    pairs, per, ops = sass.per_pair(body)
+    assert (pairs, per) == (2, 3.0)
+    assert ops == {"FADD": 0.5, "MUFU": 1.0, "FMUL": 0.5, "F2F": 0.5,
+                   "BRA": 0.5}
+    with pytest.raises(ValueError, match="backward branch"):
+        sass.pair_loop(funcs["_ZN12_GLOBAL__N_118table_sweep_kernelILi4EEvPKf"])
+
+
+@pytest.mark.parametrize("case", ["traced", "no_tie", "tie_not_the_cause"])
+def test_far_bit_check_traces_only_tie_caused_differences(case, monkeypatch):
+    """chip_smoke.far_bit_check on the CPU, with inv_sqrt_rn replaced by
+    IEEE 1 / sqrt made 10^5 ulps low at one argument (a stand-in tie): a
+    kernel output that is the list-order float64 sum with that value is
+    traced; a one-ulp change with no tie among a target's arguments, or
+    at the tie's target but not what the tie makes, fails the check."""
+    smoke = _chip_smoke()
+    cfg = PRESETS["v5_bench"]
+    rng = np.random.default_rng(3)
+    n, s, live = 64, 40, 30
+    pos = torch.from_numpy(rng.uniform(-1700, 1700, (n, 3)).astype(np.float32))
+    com = torch.from_numpy(rng.uniform(-1700, 1700, (s, 3)).astype(np.float32))
+    gmass = torch.from_numpy(rng.uniform(1, 1e4, s).astype(np.float32))
+    gmass[live:] = 0
+    zero = torch.zeros(s)
+    ss = forces.Supers(com=com, gmass=gmass, diam=zero, lo=com, hi=com,
+                       skin=zero, n_supers=torch.tensor(live))
+    soft = forces.soft_term(cfg)
+
+    def args(i):
+        d = com[:live] - pos[i]
+        return d, d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2] \
+            + soft
+
+    tie_at = args(5)[1][3].view(torch.int32)
+
+    def fake_rn(x):
+        y = 1.0 / torch.sqrt(x)
+        low = (y.view(torch.int32) - 100_000).view(torch.float32)
+        return torch.where(x.view(torch.int32) == tie_at, low, y)
+
+    monkeypatch.setattr(kern, "inv_sqrt_rn", fake_rn)
+    plain = forces.far_sweep_torch(pos, ss, cfg)
+    k_out = plain.clone()
+    d, x = args(5)
+    inv = fake_rn(x)
+    k_out[5] = smoke.list_order_sum((gmass[:live] * (inv * inv * inv))[:, None]
+                                    * d)
+    assert (k_out != plain).any(dim=1).nonzero().flatten().tolist() == [5]
+    if case == "traced":
+        assert smoke.far_bit_check("t", k_out, plain, pos, ss, cfg) == 1
+        return
+    i = 7 if case == "no_tie" else 5
+    k_out[i, 1] = torch.nextafter(k_out[i, 1], torch.tensor(1e30))
+    with pytest.raises(RuntimeError, match=rf"targets \[{i}\] not traced"):
+        smoke.far_bit_check("t", k_out, plain, pos, ss, cfg)
