@@ -19,7 +19,9 @@ launch counts zeroed before each and read after it:
            and three timed steps, a profile, a per-phase breakdown, live
            band counts and an accuracy check against a direct sum;
   [runner] the adaptive band-reuse runner, ``Simulation.run_scan``, under
-           ``metrics.drift_protocol`` from the initial conditions (1024
+           the kilostep gate, ``tools.prof_kilostep.gate`` (its config is
+           v5_bench with check_overflow=False): ``metrics.drift_protocol``
+           from the initial conditions (1024
            steps in chunks of 32): energy drift (< 1% enforced, the 0.2%
            criterion reported), steps/s, rebuilds, launches, the force
            error after the run, each force kernel against its plain
@@ -33,6 +35,18 @@ launch counts zeroed before each and read after it:
            on the skinned bands and on rank 0's slab against its 20-op
            bound and its ceiling (pairs x 4 quarter-rate operations over
            16 lanes x SMs x the maximum SM clock) beside PR 6's time;
+  [tools]  the runner's evolved state saved through
+           ``tools.prof_mkhot`` to chip_scratch/hot1m.npz and loaded back
+           bit for bit, then the measuring function of each ported tool
+           on the card at that state, each at its own config, one line
+           each: prof_fbias (the direct sum at 65,536 sampled bodies),
+           prof_capdemand (also v5_bench's first-rebuild demand against
+           its caps), prof_latestate, prof_tailtargets, prof_nearwin,
+           prof_stale, prof_skinerr, prof_hotrate and prof_hotcfg (one
+           skin-width cap; 16-step calls), prof_crash1m (one 128-step
+           chunk), prof_rebuild and prof_runner (runs of 8, 16 and 32
+           steps at the hot state, 32, 64 and 128 from the IC); every
+           force kernel must launch;
   [probe]  ``nbody_tpu_torch.tools.prof_mxu`` at its own shape, the panel
            sweep kernel in its three variants, each held against its plain
            version, its time beside its bound and PR 6's time;
@@ -93,7 +107,12 @@ from nbody_tpu_torch.ops import bbox, forces, integrate, panel
 from nbody_tpu_torch.ops.cells import build_source_cells
 from nbody_tpu_torch.ops.cuda import build, forces as kern
 from nbody_tpu_torch.ops.cuda import panel as panel_kern
-from nbody_tpu_torch.tools import prof_mxu
+from nbody_tpu_torch.tools import (
+    common as tool_common, prof_capdemand, prof_crash1m, prof_fbias,
+    prof_hotcfg, prof_hotrate, prof_kilostep, prof_latestate, prof_mkhot,
+    prof_mxu, prof_nearwin, prof_rebuild, prof_runner, prof_skinerr,
+    prof_stale, prof_tailtargets)
+from nbody_tpu_torch.tools.prof_nearwin import live_lanes
 from nbody_tpu_torch.utils import metrics
 
 # H100 SXM published peaks: FP32 outside the tensor cores and HBM
@@ -310,14 +329,6 @@ def far_ceiling_report(label, ms, bound, pairs, pr6_ms):
         f"reached")
 
 
-def popcount32(x: torch.Tensor) -> torch.Tensor:
-    v = x.to(torch.int64) & 0xFFFFFFFF
-    n = torch.zeros_like(v)
-    for k in range(32):
-        n += (v >> k) & 1
-    return n
-
-
 def bounds_ms(cfg, ps, ss, bands, tables, n_src=None):
     """Least time for each kernel's work on this run's data: the larger of
     FP32 operations over the FP32 peak and bytes (inputs read once,
@@ -344,14 +355,6 @@ def bounds_ms(cfg, ps, ss, bands, tables, n_src=None):
         out[k] = (1e3 * max(t_ops, t_mem),
                   "operations" if t_ops >= t_mem else "bytes", pairs)
     return out
-
-
-def live_lanes(bands):
-    """Set mask bits over each tile's first win_cnt windows, summed."""
-    wc = bands.win_cnt.to(torch.int64)
-    lane_ok = torch.arange(bands.win_first.shape[1],
-                           device=wc.device) < wc[:, None]
-    return int((popcount32(bands.win_mask) * lane_ok[:, None, :]).sum())
 
 
 def near_pairs_report(label, cfg, bands):
@@ -572,16 +575,22 @@ def check_finite(label, state):
             raise RuntimeError(f"non-finite {name} after the {label} path")
 
 
-def runner_phase(cfg, steps, chunk=32):
-    """The adaptive runner under drift_protocol from the initial
-    conditions; returns its launch counts and, per force kernel on the
-    runner's skinned bands at the evolved state, its (relative, absolute)
-    error against the plain version and its (time, bound) in ms."""
-    sim = Simulation(cfg, device=DEVICE)
-    ic = sim.init_state()
+def runner_phase(base, steps, chunk=32):
+    """The adaptive runner under the kilostep gate (prof_kilostep.gate:
+    drift_protocol from the initial conditions) at the gate's config,
+    which is `base` with check_overflow=False; returns its launch counts,
+    per force kernel on the runner's skinned bands at the evolved state
+    its (relative, absolute) error against the plain version and its
+    (time, bound) in ms, and the protocol's result."""
+    cfg = prof_kilostep.make_config(base.rebuild_every, base.hold_farmid,
+                                    base.n)
+    if cfg != base.replace(check_overflow=False):
+        raise RuntimeError("prof_kilostep's config differs from v5_bench")
+    ic = make_initial_state(cfg, device=DEVICE)
     sync()
     kern.reset_launches()
-    res = metrics.drift_protocol(sim, ic, steps, chunk=chunk)
+    res = prof_kilostep.gate(ic, cfg, steps, chunk=chunk, log_every=0)
+    sim = res["sim"]
     launches = dict(kern.LAUNCHES)
     rebuilds = sim.n_rebuilds
     taken, state = res["drift_steps"], res["state"]
@@ -654,7 +663,7 @@ def runner_phase(cfg, steps, chunk=32):
         f"one run_scan chunk of {chunk} steps": lambda: sim.run_scan(nxt,
                                                                      chunk),
     })
-    return launches, errs, timing, differ
+    return launches, errs, timing, differ, res
 
 
 def check_syncs(sim, ic, state, chunk):
@@ -691,6 +700,169 @@ def check_syncs(sim, ic, state, chunk):
         if n or stepper.n_rebuilds != rb0:
             raise RuntimeError(f"{label}: {n} host syncs, "
                                f"{stepper.n_rebuilds - rb0} rebuilds")
+
+
+# [tools]: where the hot state goes, and the cuts of depth that keep the
+# phase under two minutes at 1M (PERF.md section 4)
+HOT_PATH = os.path.join("chip_scratch", "hot1m.npz")
+TOOLS_FBIAS_ROWS = 1 << 16   # bodies whose direct sum prof_fbias takes
+TOOLS_RATE_STEPS = 16        # run_scan calls of prof_hotrate, prof_hotcfg
+TOOLS_RUNNER_STEPS = (8, (16, 32))  # prof_runner's runs at the hot state
+TOOLS_ALPHA = 0.75           # prof_hotcfg's one skin-width cap
+
+
+def v5_demand_report(cfg, dem):
+    """The v5_bench caps against the demand of its first rebuild of a
+    run_scan call (rebuild_every-step skins) under huge caps."""
+    caps = {"sup": cfg.sup_cap, "mid": cfg.mid_cap, "cmid": cfg.cmid_cap,
+            "near": cfg.near_cap, "wins": cfg.win_cap_eff}
+    over = [k for k, c in caps.items() if dem[k]["max"] > c]
+    log("[tools] prof_capdemand.demand at v5_bench, 16-step skins, huge "
+        "caps: " + ", ".join(f"{k} max {dem[k]['max']} p999 "
+                             f"{dem[k]['p999']} / cap {c}"
+                             for k, c in caps.items())
+        + f"; past the cap: {over or 'none'}")
+    return {k: (dem[k]["max"], dem[k]["p999"], c) for k, c in caps.items()}
+
+
+def tools_phase(base, state, step, e_hot):
+    """The ported tools of nbody_tpu_torch.tools at the runner's evolved
+    1M state: saved through prof_mkhot and loaded back bit for bit, then
+    each tool's measuring function on the card, one [tools] line each.
+    Returns the launch counts and a summary for the [slice] line."""
+    prof_mkhot.save_hot(HOT_PATH, state, step)
+    hot, at = tool_common.load_state(HOT_PATH, device=DEVICE)
+    if at != step or not all(torch.equal(a, b) for a, b in zip(hot, state)):
+        raise RuntimeError(f"{HOT_PATH} did not load back bit for bit")
+    n = hot.n
+    secs, out = {}, {}
+    kern.reset_launches()
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        secs[name] = time.perf_counter() - t0
+        return r
+
+    def finite(name, *xs):
+        if not all(np.isfinite(x) for x in xs):
+            raise RuntimeError(f"[tools] {name}: non-finite result {xs}")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    rows = torch.randperm(n, generator=gen, device=DEVICE)[:TOOLS_FBIAS_ROWS]
+    fcfg = prof_fbias.make_config(n)
+    a_ref = run("direct", lambda: prof_fbias.direct_reference(hot, fcfg,
+                                                              rows))
+    r = run("prof_fbias", lambda: prof_fbias.probe(hot, fcfg, a_ref, e_hot,
+                                                   rows))
+    finite("prof_fbias", r["p_err"], r["rel_mean"])
+    log(f"[tools] prof_fbias (ship; direct sum at {r['rows']} of {n} bodies, "
+        f"{secs['direct']:.1f} s): " + prof_fbias.report("", r, secs[
+            "prof_fbias"]).replace("\n    ", " | ")
+        + f"; P_err over the sample {r['p_err']:+.4e}, sum |m v.da| "
+        f"{r['p_abs']:.4e}")
+    out["fbias"] = {k: r[k] for k in ("p_err_scaled", "drift_128", "rel_mean",
+                                      "rel_max", "q99", "overflow")}
+
+    ccfg = prof_capdemand.make_config(n).replace(**prof_capdemand.BIG)
+    for label, skins in (("hot skins", True), ("hot live ", False)):
+        r = run(f"prof_capdemand {label}", lambda: prof_capdemand.demand(
+            hot, ccfg, skins))
+        log("[tools] prof_capdemand " + prof_capdemand.report(label, r))
+    r = run("prof_capdemand v5_bench", lambda: prof_capdemand.demand(
+        hot, base.replace(**prof_capdemand.BIG), True))
+    out["v5_demand"] = v5_demand_report(base, r)
+
+    r = run("prof_latestate", lambda: prof_latestate.late_state(
+        hot, prof_latestate.make_config(n)))
+    for k, x in r.items():
+        log("[tools] prof_latestate " + prof_latestate.report(k, x)
+            .replace("\n     ", " |"))
+
+    r = run("prof_tailtargets", lambda: prof_tailtargets.tail(
+        hot, prof_tailtargets.make_config(n).replace(**prof_capdemand.BIG)))
+    log(f"[tools] prof_tailtargets: box {r['size']:.0f}, max sub-radius p50 "
+        f"{r['rad_p50']:.1f} p99 {r['rad_p99']:.1f}; top near tile "
+        + ", ".join(f"{k} {v}" for k, v in r["top"]["near"][0].items()
+                    if k != "subrad")
+        + f", largest sub-radius {r['top']['near'][0]['subrad'][0]:.1f}; "
+        f"fat tiles {r['fat']} ({r['fat_share']:.3%}), "
+        f"near p50/max {r['fat_near_p50']:.0f}/{r['fat_near_max']}; others "
+        f"p999/max {r['thin_near_p999']:.0f}/{r['thin_near_max']}")
+
+    ncfg = prof_nearwin.make_config(n)
+    for label, skins in (("live", False), ("skins", True)):
+        r = run(f"prof_nearwin {label}", lambda: prof_nearwin.window_stats(
+            hot, ncfg, skins))
+        finite("prof_nearwin", r["near_ms"], r["farmid_ms"])
+        log("[tools] prof_nearwin " + prof_nearwin.report(label, r, "cuda")
+            .replace(f"\n[{label}]", " |"))
+
+    r = run("prof_stale", lambda: prof_stale.stale(
+        hot, prof_stale.make_config(n)))
+    log("[tools] prof_stale " + prof_stale.report(r).replace("\n  ", " | "))
+    out["stale"] = {j: {k: v["med"] for k, v in x.items()}
+                    for j, x in r["j"].items()}
+
+    r = run("prof_skinerr", lambda: prof_skinerr.skin_error(
+        hot, prof_skinerr.make_config(n)))
+    for k, x in r.items():
+        log("[tools] prof_skinerr " + prof_skinerr.report(k, x))
+    out["skinerr"] = {k: x["med"] for k, x in r.items()}
+
+    r = run("prof_hotrate", lambda: prof_hotrate.sustained(
+        hot, prof_hotrate.make_config(n), steps=TOOLS_RATE_STEPS))
+    log(f"[tools] prof_hotrate ({TOOLS_RATE_STEPS}-step calls, "
+        f"{r['rebuilds']} rebuilds timed) " + prof_hotrate.report("hot", r))
+    out["hotrate_ms"] = r["ms_per_step"]
+
+    r = run("prof_hotcfg", lambda: prof_hotcfg.alpha_run(
+        hot, prof_hotcfg.make_config(n), TOOLS_ALPHA, TOOLS_RATE_STEPS))
+    log("[tools] prof_hotcfg " + prof_hotcfg.report(TOOLS_ALPHA, r)
+        .replace("\n ", " |"))
+
+    ccfg = prof_crash1m.make_config(n)
+    r = run("prof_crash1m", lambda: prof_crash1m.chunk(hot, ccfg, 128))
+    check_finite("prof_crash1m", r["state"])
+    log(f"[tools] prof_crash1m ({r['rebuilds']} rebuilds)"
+        + prof_crash1m.report(128, r))
+
+    r = run("prof_rebuild", lambda: prof_rebuild.phases(
+        hot, prof_rebuild.make_config(n)))
+    log("[tools] prof_rebuild at the hot state: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in r["ms"].items())
+        + f"; n_cells {r['n_cells']}")
+    out["rebuild_ms"] = r["ms"]
+
+    rcfg = prof_runner.make_config(n)
+    # the hot state, cut, and the IC at the tool's own runs: there the
+    # rebuild cadence varies, so the fit can separate a step from a rebuild
+    for label, st, (steps, fit_steps) in (
+            ("hot", hot, TOOLS_RUNNER_STEPS),
+            ("IC", make_initial_state(rcfg, device=DEVICE),
+             (32, prof_runner.FIT_STEPS))):
+        r = run(f"prof_runner {label}", lambda: prof_runner.closure(
+            st, rcfg, steps, fit_steps))
+        f = r["fit"]
+        log(f"[tools] prof_runner {label}: " + ", ".join(
+            f"{s} steps {x['ms']:.1f} ms ({x['rebuilds']} rebuilds)"
+            for s, x in r["runs"].items())
+            + f"; one rebuild {r['rebuild']['ms']:.2f} ms (s_valid "
+            f"{r['rebuild']['s_valid']}, k_next {r['rebuild']['k_next']}); "
+            f"fit x {f['x_ms']:.2f} ms/step, y {f['y_ms']:.2f} ms/rebuild "
+            f"({f['y_from']}), c {f['c_ms']:.1f} ms (rank {f['rank']}); a "
+            f"step with its share of the rebuilds {f['step_ms']:.2f} ms")
+        out[f"runner_fit_{label}"] = f
+    launches = dict(kern.LAUNCHES)
+    log(f"[tools] launches {launches}; seconds " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; total {sum(secs.values()):.1f} s")
+    for k, v in launches.items():
+        if v == 0:
+            raise RuntimeError(f"[tools] never launched {k}")
+    out["seconds"] = secs
+    return launches, out
 
 
 def probe_phase():
@@ -1534,8 +1706,10 @@ def main() -> int:
     band_report("main", cfg, cells, ss, bands)
 
     near_pairs_report("kernels main", cfg, bands)
-    launches, runner_err, runner_ms, runner_differ = runner_phase(
+    launches, runner_err, runner_ms, runner_differ, gate = runner_phase(
         cfg, RUNNER_STEPS)
+    launches_tools, tools_res = tools_phase(cfg, gate["state"],
+                                            gate["drift_steps"], gate["e1"])
 
     calls = kernel_calls(cfg, ps, ms, ss, bands, tables)
     errs, main_differ = compare(calls, "kernels main", (ps, ss, cfg))
@@ -1590,7 +1764,8 @@ def main() -> int:
     shard_rows, shard_res = shard_phase()
     for row in rows[:3]:
         k = row["name"]
-        row.update(launches_cli_run=cli_res["launches_run"][k],
+        row.update(launches_tools=launches_tools[k],
+                   launches_cli_run=cli_res["launches_run"][k],
                    launches_cli_bench=cli_res["launches_bench"][k],
                    launches_render=render_res["launches"][k],
                    launches_view=view_res["launches"][k],
@@ -1602,7 +1777,8 @@ def main() -> int:
                 if not k.startswith("launches")},
         "render_ms": {m: render_res[f"{m}_ms"] for m in RENDER_BOUNDS},
         "view": {k: v for k, v in view_res.items() if k != "launches"},
-        "ensemble_ms": ens_res["ms"], "shard": shard_res}))
+        "ensemble_ms": ens_res["ms"], "shard": shard_res,
+        "tools": tools_res}))
 
     print(json.dumps({"kernels": rows}))
     print(smi)
