@@ -712,17 +712,17 @@ TOOLS_ALPHA = 0.75           # prof_hotcfg's one skin-width cap
 
 
 def v5_demand_report(cfg, dem):
-    """The v5_bench caps against the demand of its first rebuild of a
-    run_scan call (rebuild_every-step skins) under huge caps."""
+    """(text, summary): the v5_bench caps against the demand of its first
+    rebuild of a run_scan call (rebuild_every-step skins) under huge
+    caps."""
     caps = {"sup": cfg.sup_cap, "mid": cfg.mid_cap, "cmid": cfg.cmid_cap,
             "near": cfg.near_cap, "wins": cfg.win_cap_eff}
     over = [k for k, c in caps.items() if dem[k]["max"] > c]
-    log("[tools] prof_capdemand.demand at v5_bench, 16-step skins, huge "
-        "caps: " + ", ".join(f"{k} max {dem[k]['max']} p999 "
-                             f"{dem[k]['p999']} / cap {c}"
-                             for k, c in caps.items())
-        + f"; past the cap: {over or 'none'}")
-    return {k: (dem[k]["max"], dem[k]["p999"], c) for k, c in caps.items()}
+    text = ("v5_bench, 16-step skins: " + ", ".join(
+        f"{k} max {dem[k]['max']} p999 {dem[k]['p999']} / cap {c}"
+        for k, c in caps.items()) + f"; past the cap: {over or 'none'}")
+    return text, {k: (dem[k]["max"], dem[k]["p999"], c)
+                  for k, c in caps.items()}
 
 
 def tools_phase(base, state, step, e_hot):
@@ -766,19 +766,21 @@ def tools_phase(base, state, step, e_hot):
                                       "rel_max", "q99", "overflow")}
 
     ccfg = prof_capdemand.make_config(n).replace(**prof_capdemand.BIG)
+    parts = []
     for label, skins in (("hot skins", True), ("hot live ", False)):
         r = run(f"prof_capdemand {label}", lambda: prof_capdemand.demand(
             hot, ccfg, skins))
-        log("[tools] prof_capdemand " + prof_capdemand.report(label, r))
+        parts.append(prof_capdemand.report(label, r))
     r = run("prof_capdemand v5_bench", lambda: prof_capdemand.demand(
         hot, base.replace(**prof_capdemand.BIG), True))
-    out["v5_demand"] = v5_demand_report(base, r)
+    text, out["v5_demand"] = v5_demand_report(base, r)
+    log("[tools] prof_capdemand " + " | ".join(parts + [text]))
 
     r = run("prof_latestate", lambda: prof_latestate.late_state(
         hot, prof_latestate.make_config(n)))
-    for k, x in r.items():
-        log("[tools] prof_latestate " + prof_latestate.report(k, x)
-            .replace("\n     ", " |"))
+    log("[tools] prof_latestate " + " | ".join(
+        prof_latestate.report(k, x).replace("\n     ", " |")
+        for k, x in r.items()))
 
     r = run("prof_tailtargets", lambda: prof_tailtargets.tail(
         hot, prof_tailtargets.make_config(n).replace(**prof_capdemand.BIG)))
@@ -792,12 +794,14 @@ def tools_phase(base, state, step, e_hot):
         f"p999/max {r['thin_near_p999']:.0f}/{r['thin_near_max']}")
 
     ncfg = prof_nearwin.make_config(n)
+    parts = []
     for label, skins in (("live", False), ("skins", True)):
         r = run(f"prof_nearwin {label}", lambda: prof_nearwin.window_stats(
             hot, ncfg, skins))
         finite("prof_nearwin", r["near_ms"], r["farmid_ms"])
-        log("[tools] prof_nearwin " + prof_nearwin.report(label, r, "cuda")
-            .replace(f"\n[{label}]", " |"))
+        parts.append(prof_nearwin.report(label, r, "cuda")
+                     .replace(f"\n[{label}]", " |"))
+    log("[tools] prof_nearwin " + " | ".join(parts))
 
     r = run("prof_stale", lambda: prof_stale.stale(
         hot, prof_stale.make_config(n)))
@@ -807,8 +811,8 @@ def tools_phase(base, state, step, e_hot):
 
     r = run("prof_skinerr", lambda: prof_skinerr.skin_error(
         hot, prof_skinerr.make_config(n)))
-    for k, x in r.items():
-        log("[tools] prof_skinerr " + prof_skinerr.report(k, x))
+    log("[tools] prof_skinerr " + " | ".join(
+        prof_skinerr.report(k, x) for k, x in r.items()))
     out["skinerr"] = {k: x["med"] for k, x in r.items()}
 
     r = run("prof_hotrate", lambda: prof_hotrate.sustained(
@@ -836,6 +840,7 @@ def tools_phase(base, state, step, e_hot):
     out["rebuild_ms"] = r["ms"]
 
     rcfg = prof_runner.make_config(n)
+    parts = []
     # the hot state, cut, and the IC at the tool's own runs: there the
     # rebuild cadence varies, so the fit can separate a step from a rebuild
     for label, st, (steps, fit_steps) in (
@@ -845,7 +850,7 @@ def tools_phase(base, state, step, e_hot):
         r = run(f"prof_runner {label}", lambda: prof_runner.closure(
             st, rcfg, steps, fit_steps))
         f = r["fit"]
-        log(f"[tools] prof_runner {label}: " + ", ".join(
+        parts.append(f"{label}: " + ", ".join(
             f"{s} steps {x['ms']:.1f} ms ({x['rebuilds']} rebuilds)"
             for s, x in r["runs"].items())
             + f"; one rebuild {r['rebuild']['ms']:.2f} ms (s_valid "
@@ -854,6 +859,7 @@ def tools_phase(base, state, step, e_hot):
             f"({f['y_from']}), c {f['c_ms']:.1f} ms (rank {f['rank']}); a "
             f"step with its share of the rebuilds {f['step_ms']:.2f} ms")
         out[f"runner_fit_{label}"] = f
+    log("[tools] prof_runner " + " | ".join(parts))
     launches = dict(kern.LAUNCHES)
     log(f"[tools] launches {launches}; seconds " + ", ".join(
         f"{k} {v:.1f}" for k, v in secs.items())
