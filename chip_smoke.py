@@ -44,9 +44,13 @@ launch counts zeroed before each and read after it:
            its caps), prof_latestate, prof_tailtargets, prof_nearwin,
            prof_stale, prof_skinerr, prof_hotrate and prof_hotcfg (one
            skin-width cap; 16-step calls), prof_crash1m (one 128-step
-           chunk), prof_rebuild and prof_runner (runs of 8, 16 and 32
-           steps at the hot state, 32, 64 and 128 from the IC); every
-           force kernel must launch;
+           chunk), prof_rebuild and prof_runner (runs of 4, 8 and 16
+           steps at the hot state, 32, 64 and 128 from the IC, each
+           timed three times); every force kernel must launch; then
+           each force kernel against its plain version (the far sweep
+           bit for bit) on prof_nearwin's skinned build, at the tools'
+           own config (force_tile 256, super-supers) on the hot state,
+           with its time and bound there;
   [probe]  ``nbody_tpu_torch.tools.prof_mxu`` at its own shape, the panel
            sweep kernel in its three variants, each held against its plain
            version, its time beside its bound and PR 6's time;
@@ -380,14 +384,12 @@ def tile_order_report(label, bands, tables):
 
 
 def skinned_bands(cfg, state):
-    """The runner's rebuild at `state` with envelopes for rebuild_every
-    steps: (pos, mass, cells, ss, bands, tables, s_valid, k_next)."""
-    pos, vel, mass, acc, orig = simulation._pad_cycle_state(state,
-                                                           cfg.force_tile)
-    k_env = torch.full((), cfg.rebuild_every, device=DEVICE)
+    """The runner's first rebuild of a run_scan call at `state`
+    (tools.common.first_rebuild, envelopes for rebuild_every steps):
+    (pos, mass, cells, ss, bands, tables, s_valid, k_next)."""
+    rebuild, args = tool_common.first_rebuild(state, cfg)
     (pos, _, mass, _, _, _), (cells, ss, bands, tables, _), (
-        s_valid, k_next) = simulation._adaptive_rebuild_fn(cfg)(
-            pos, vel, mass, acc, orig, k_env)
+        s_valid, k_next) = rebuild(*args)
     return pos, mass, cells, ss, bands, tables, s_valid, k_next
 
 
@@ -409,7 +411,11 @@ def check_geometry(label, cfg):
 
 def phase_breakdown(cfg, state):
     """One step phase by phase with a device sync around each phase;
-    returns (per-phase ms, the sorted inputs and band structures)."""
+    returns (per-phase ms, the sorted inputs and band structures).  It
+    stays beside tools.prof_rebuild.phases, which times each phase of a
+    skinned rebuild alone: this one is [main]'s whole per-step path
+    (force kernels and integration too), and kernel_calls needs the
+    structures it returns."""
     ms_by = {}
 
     def timed(name, fn):
@@ -514,29 +520,14 @@ def profile_spans(spans, top=6):
 
 
 def band_report(label, cfg, cells, ss, bands):
-    """Live band demand per tile and the overflow flags."""
-    t = bands.win_cnt.shape[0]
-    means = {k: float(getattr(bands, f"{k}_cnt").float().mean())
-             for k in ("ss", "sup", "mid", "cmid", "near", "win")}
+    """Band demand per tile (the tools' mean/p999/max) and the overflow
+    flags."""
+    names = ("ss", "sup", "mid", "cmid", "near", "wins")
     log(f"[{label}] n_cells {int(cells.n_cells)} / {cfg.cell_capacity}, "
-        f"tiles {t}, n_ss live {int(ss.n_supers)}; mean per tile " +
-        ", ".join(f"{k} {v:.1f}" for k, v in means.items()))
-    flags = {k: bool(getattr(bands, f"{k}_overflow"))
-             for k in ("ss", "sup", "mid", "cmid", "near")}
-    flags.update(cells=bool(cells.overflow), g2=bool(cells.overflow_g2))
-    log(f"[{label}] overflow {flags}")
-
-
-def direct_f64(state, idx, cfg):
-    """float64 direct-sum accelerations of bodies `idx` of `state` from
-    every body."""
-    tgt = state.pos[idx].double()
-    src, m = state.pos.double(), state.mass.double()
-    ref = torch.zeros_like(tgt)
-    for j in range(0, state.n, 16384):
-        ref += forces._panel_accel(tgt, src[j:j + 16384], m[j:j + 16384],
-                                   cfg.g, forces.soft_term(cfg))
-    return ref
+        f"tiles {bands.win_cnt.shape[0]}, n_ss live {int(ss.n_supers)}; "
+        f"per tile mean/p999/max " + tool_common.quantile_text(
+            names, tool_common.band_quantiles(bands, names)))
+    log(f"[{label}] overflow {tool_common.overflow_flags(cells, bands)}")
 
 
 def direct_check(prev, acc, cfg, n_targets=4096, seed=7):
@@ -545,7 +536,7 @@ def direct_check(prev, acc, cfg, n_targets=4096, seed=7):
     tests/test_forces.py's grouped-vs-direct test: 2% on the median)."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     idx = torch.randperm(prev.n, generator=gen, device=DEVICE)[:n_targets]
-    ref = direct_f64(prev, idx, cfg)
+    ref = tool_common.direct_sum(prev, cfg, idx, torch.float64)
     ref_norm = ref.norm(dim=1)
     err = (acc[idx].double() - ref).norm(dim=1) / ref_norm
     worst = int(err.argmax())
@@ -702,12 +693,11 @@ def check_syncs(sim, ic, state, chunk):
                                f"{stepper.n_rebuilds - rb0} rebuilds")
 
 
-# [tools]: where the hot state goes, and the cuts of depth that keep the
+# [tools]: the cuts of depth that keep the
 # phase under two minutes at 1M (PERF.md section 4)
-HOT_PATH = os.path.join("chip_scratch", "hot1m.npz")
 TOOLS_FBIAS_ROWS = 1 << 16   # bodies whose direct sum prof_fbias takes
 TOOLS_RATE_STEPS = 16        # run_scan calls of prof_hotrate, prof_hotcfg
-TOOLS_RUNNER_STEPS = (8, (16, 32))  # prof_runner's runs at the hot state
+TOOLS_RUNNER_STEPS = (4, (8, 16))  # prof_runner's runs at the hot state
 TOOLS_ALPHA = 0.75           # prof_hotcfg's one skin-width cap
 
 
@@ -728,12 +718,18 @@ def v5_demand_report(cfg, dem):
 def tools_phase(base, state, step, e_hot):
     """The ported tools of nbody_tpu_torch.tools at the runner's evolved
     1M state: saved through prof_mkhot and loaded back bit for bit, then
-    each tool's measuring function on the card, one [tools] line each.
-    Returns the launch counts and a summary for the [slice] line."""
-    prof_mkhot.save_hot(HOT_PATH, state, step)
-    hot, at = tool_common.load_state(HOT_PATH, device=DEVICE)
+    each tool's measuring function on the card, one [tools] line each;
+    then each force kernel against its plain version on prof_nearwin's
+    skinned build at the tools' config (outside the counted launches).
+    Returns the launch counts, that comparison {kernel: (relative
+    error, absolute error, ms, bound ms)} with the far sweep's count of
+    targets that differ in any bit, and a summary for the [slice]
+    line."""
+    path = tool_common.HOT_STATE
+    prof_mkhot.save_hot(path, state, step)
+    hot, at = tool_common.load_state(path, device=DEVICE)
     if at != step or not all(torch.equal(a, b) for a, b in zip(hot, state)):
-        raise RuntimeError(f"{HOT_PATH} did not load back bit for bit")
+        raise RuntimeError(f"{path} did not load back bit for bit")
     n = hot.n
     secs, out = {}, {}
     kern.reset_launches()
@@ -855,10 +851,16 @@ def tools_phase(base, state, step, e_hot):
             for s, x in r["runs"].items())
             + f"; one rebuild {r['rebuild']['ms']:.2f} ms (s_valid "
             f"{r['rebuild']['s_valid']}, k_next {r['rebuild']['k_next']}); "
-            f"fit x {f['x_ms']:.2f} ms/step, y {f['y_ms']:.2f} ms/rebuild "
-            f"({f['y_from']}), c {f['c_ms']:.1f} ms (rank {f['rank']}); a "
-            f"step with its share of the rebuilds {f['step_ms']:.2f} ms")
-        out[f"runner_fit_{label}"] = f
+            f"fit of the medians of {prof_runner.REPS} x {f['x_ms']:.2f} "
+            f"ms/step, y {f['y_ms']:.2f} ms/rebuild ({f['y_from']}), c "
+            f"{f['c_ms']:.1f} ms (rank {f['rank']}); each repetition's own "
+            f"fit: " + ", ".join(f"{k[0]} {lo:.2f}..{hi:.2f}" for k, (
+                lo, hi) in r["spread"].items())
+            + f"; a step with its share of the rebuilds "
+            f"{f['step_ms']:.2f} ms; run ms " + ", ".join(
+                f"{s}: " + "/".join(f"{t:.1f}" for t in x["ms_all"])
+                for s, x in r["runs"].items()))
+        out[f"runner_fit_{label}"] = dict(f, spread=r["spread"])
     log("[tools] prof_runner " + " | ".join(parts))
     launches = dict(kern.LAUNCHES)
     log(f"[tools] launches {launches}; seconds " + ", ".join(
@@ -868,7 +870,27 @@ def tools_phase(base, state, step, e_hot):
         if v == 0:
             raise RuntimeError(f"[tools] never launched {k}")
     out["seconds"] = secs
-    return launches, out
+
+    # the kernels at the tools' own shapes: force_tile 256, super-supers,
+    # the hot state's skinned bands (the largest live counts they make)
+    ps, ms, ss, bands, tables = prof_nearwin.build(hot, ncfg, True)
+    near_pairs_report("kernels tools", ncfg, bands)
+    calls = kernel_calls(ncfg, ps, ms, ss, bands, tables)
+    errs, differ = compare(calls, "kernels tools", (ps, ss, ncfg))
+    bnd = bounds_ms(ncfg, ps, ss, bands, tables)
+    kernels = {}
+    for k, (rel, abs_err) in errs.items():
+        k_ms = event_ms(calls[k][0], 10)
+        kernels[k] = (rel, abs_err, k_ms, bnd[k][0])
+        log(f"[kernels tools] {k}: rel_err {rel:.3e} (bound "
+            f"{BOUNDS[k]:.0e}), max abs err {abs_err:.3e}; kernel "
+            f"{k_ms:.3f} ms, bound {bnd[k][0]:.3f} ms ({bnd[k][1]}, "
+            f"{100 * bnd[k][0] / k_ms:.1f}% of it reached)"
+            + ceiling_note(k, bnd[k][2], k_ms))
+        if not rel <= BOUNDS[k]:
+            raise RuntimeError(f"{k} on the tools' bands: error {rel} > "
+                               f"{BOUNDS[k]}")
+    return launches, (kernels, differ), out
 
 
 def probe_phase():
@@ -989,7 +1011,7 @@ def reference_phase(cfg, ic):
     # relative error and as an absolute one over the median |a| (the rel
     # diff above divides by the production |a|, small at these bodies)
     worst = torch.topk(rel, REFERENCE_WORST).indices
-    ref = direct_f64(ic, worst, cfg)
+    ref = tool_common.direct_sum(ic, cfg, worst, torch.float64)
     ref_norm = ref.norm(dim=1)
     scale = float(prod.acc.norm(dim=1).median())
     err = {name: (a[worst].double() - ref).norm(dim=1)
@@ -1714,8 +1736,8 @@ def main() -> int:
     near_pairs_report("kernels main", cfg, bands)
     launches, runner_err, runner_ms, runner_differ, gate = runner_phase(
         cfg, RUNNER_STEPS)
-    launches_tools, tools_res = tools_phase(cfg, gate["state"],
-                                            gate["drift_steps"], gate["e1"])
+    launches_tools, (tools_kern, tools_differ), tools_res = tools_phase(
+        cfg, gate["state"], gate["drift_steps"], gate["e1"])
 
     calls = kernel_calls(cfg, ps, ms, ss, bands, tables)
     errs, main_differ = compare(calls, "kernels main", (ps, ss, cfg))
@@ -1733,7 +1755,9 @@ def main() -> int:
             "max_abs_err": abs_err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bnd[k][0], "bound_by": bnd[k][1], "library_ms": None,
             "ms_runner": runner_ms[k][0], "bound_ms_runner": runner_ms[k][1],
+            "ms_tools": tools_kern[k][2], "bound_ms_tools": tools_kern[k][3],
             "rel_err_main": rel, "rel_err_runner": runner_err[k][0],
+            "rel_err_tools": tools_kern[k][0],
             "rel_err_t512": geo_err["t512"][k],
             "rel_err_t128": geo_err["t128"][k],
             "launches_step": launches_step[k],
@@ -1746,6 +1770,7 @@ def main() -> int:
         if k == "far_sweep":
             rows[-1].update(bit_differ_main=main_differ,
                             bit_differ_runner=runner_differ,
+                            bit_differ_tools=tools_differ,
                             bit_differ_t512=geo["t512"][1],
                             bit_differ_t128=geo["t128"][1],
                             bit_differ_edges=edges_differ)

@@ -1,6 +1,7 @@
 """What the ported tools share: the device flag, SimConfig override
 strings, the hot state, advancing a state, timing, the Morton-sorted
-padded inputs of a band build and band-count quantiles.
+padded inputs of a band build, the runner's first rebuild, a direct sum
+and band-count quantiles.
 
 A tool's measuring function takes a ParticleState and a SimConfig and
 returns a dict; its ``main(argv)`` parses the JAX tool's arguments (each
@@ -17,7 +18,8 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 
 from nbody_tpu_torch.config import PRESETS, SimConfig
-from nbody_tpu_torch.models.simulation import sort_by_morton
+from nbody_tpu_torch.models.simulation import _adaptive_rebuild_fn, \
+    _pad_cycle_state, sort_by_morton
 from nbody_tpu_torch.ops import forces
 from nbody_tpu_torch.state import ParticleState
 from nbody_tpu_torch.utils.io import load_checkpoint
@@ -120,6 +122,39 @@ def sorted_padded(state: ParticleState, cfg: SimConfig):
     return ps, ms, cs, perm, lo, size
 
 
+def first_rebuild(state: ParticleState, cfg: SimConfig):
+    """(rebuild, args): the adaptive runner's rebuild and its inputs at
+    `state` with k_env = K (the first rebuild of every run_scan call,
+    envelopes for cfg.rebuild_every steps).  rebuild(*args) returns
+    ((pos, vel, mass, acc, orig, afm), (cells, ss, bands, tables, rctx),
+    (s_valid, k_next)) in the new (sorted, tile-padded) order, as
+    models.simulation._adaptive_rebuild_fn says."""
+    args = _pad_cycle_state(state, cfg.force_tile) + (
+        torch.full((), cfg.rebuild_every, device=state.device),)
+    return _adaptive_rebuild_fn(cfg), args
+
+
+def direct_sum(state: ParticleState, cfg: SimConfig,
+               rows: Optional[torch.Tensor] = None, dtype=torch.float32,
+               block: int = 1024) -> torch.Tensor:
+    """Direct-sum accelerations of every body (or of `rows`) from every
+    body, in `dtype`, in forces.direct_forces's panels (the self term adds
+    exactly zero)."""
+    pos, mass = state.pos.to(dtype), state.mass.to(dtype)
+    tgt = pos if rows is None else pos[rows]
+    g, soft = cfg.g, forces.soft_term(cfg)
+    src_block = max(block, forces._PANEL_ELEMS // block)
+    out = []
+    for i in range(0, tgt.shape[0], block):
+        acc = torch.zeros_like(tgt[i:i + block])
+        for j in range(0, state.n, src_block):
+            acc += forces._panel_accel(tgt[i:i + block],
+                                       pos[j:j + src_block],
+                                       mass[j:j + src_block], g, soft)
+        out.append(acc)
+    return torch.cat(out)
+
+
 def norms_padded(x: torch.Tensor, npad: int) -> torch.Tensor:
     """|x| of each row, zero-padded to npad rows."""
     v = torch.sqrt((x ** 2).sum(dim=1))
@@ -149,6 +184,18 @@ def quantiles(x: torch.Tensor) -> Dict:
 # the JAX tools' band names and the CellBands fields they read
 COUNTS = {"ss": "ss_cnt", "sup": "sup_cnt", "mid": "mid_cnt",
           "cmid": "cmid_cnt", "near": "near_cnt", "wins": "win_cnt"}
+
+
+# the seven overflow flags of a build, in the JAX tools' order
+FLAGS = ("ss", "sup", "mid", "cmid", "near", "cells", "g2")
+
+
+def overflow_flags(cells, bands) -> Dict:
+    """{flag: bool} of the band caps, the cell capacity and the
+    grandchild cap."""
+    out = {k: bool(getattr(bands, f"{k}_overflow")) for k in FLAGS[:5]}
+    out.update(cells=bool(cells.overflow), g2=bool(cells.overflow_g2))
+    return out
 
 
 def band_quantiles(bands, names: Iterable[str]) -> Dict:

@@ -40,32 +40,15 @@ from nbody_tpu_torch.tools import common
 from nbody_tpu_torch.utils import metrics
 from nbody_tpu_torch.utils.profiling import _sync
 
-FLAGS = ("ss", "sup", "mid", "cmid", "near", "cells", "g2")
-
-
 def make_config(n: int) -> SimConfig:
     return PRESETS["v5_bench"].replace(n=n, check_overflow=False)
 
 
 def direct_reference(state: ParticleState, cfg: SimConfig,
-                     rows: torch.Tensor | None = None,
-                     block: int = 1024) -> torch.Tensor:
+                     rows: torch.Tensor | None = None) -> torch.Tensor:
     """float32 direct-sum accelerations of every body (or of `rows`)
     from every body, in forces.direct_forces's panels."""
-    if rows is None:
-        return forces.direct_forces(state.pos, state.mass, cfg, block=block)
-    g, soft = cfg.g, forces.soft_term(cfg)
-    tgt = state.pos[rows]
-    src_block = max(block, forces._PANEL_ELEMS // block)
-    out = []
-    for i in range(0, tgt.shape[0], block):
-        acc = torch.zeros_like(tgt[i:i + block])
-        for j in range(0, state.n, src_block):
-            acc += forces._panel_accel(tgt[i:i + block],
-                                       state.pos[j:j + src_block],
-                                       state.mass[j:j + src_block], g, soft)
-        out.append(acc)
-    return torch.cat(out)
+    return common.direct_sum(state, cfg, rows)
 
 
 def probe(state: ParticleState, cfg: SimConfig, a_ref: torch.Tensor,
@@ -96,9 +79,6 @@ def probe(state: ParticleState, cfg: SimConfig, a_ref: torch.Tensor,
     p_err = float(power.sum())
     scale = n / power.shape[0]
     de = p_err * scale * cfg.dt * 128.0
-    flags = [bands.ss_overflow, bands.sup_overflow, bands.mid_overflow,
-             bands.cmid_overflow, bands.near_overflow, cells.overflow,
-             cells.overflow_g2]
     return {
         "rows": power.shape[0],
         "p_err": p_err,
@@ -110,7 +90,7 @@ def probe(state: ParticleState, cfg: SimConfig, a_ref: torch.Tensor,
         "rel_max": float(rel.max()),
         "n_clamp": int(over.sum()),
         "ke_clamp": float(ke) * scale,
-        "overflow": {k: bool(f) for k, f in zip(FLAGS, flags)},
+        "overflow": common.overflow_flags(cells, bands),
         "n_cells": int(cells.n_cells),
         "p_core": float(power[core].sum()),
         "rel_core": float(rel[core].sum()) / n_core,
@@ -120,7 +100,7 @@ def probe(state: ParticleState, cfg: SimConfig, a_ref: torch.Tensor,
 
 
 def report(label: str, r: dict, secs: float) -> str:
-    ovf = [int(r["overflow"][k]) for k in FLAGS]
+    ovf = [int(r["overflow"][k]) for k in common.FLAGS]
     return (f"[{label or 'ship'}] P_err={r['p_err_scaled']:+.4e} "
             f"dE/128steps={r['de_128']:+.4e} "
             f"(drift/128={r['drift_128']:+.2e}) "

@@ -8,7 +8,8 @@ and its mean over the weak-|a| half (the halo) and the strong half.
 
 The JAX tool runs on the CPU only; this one runs where --device says
 (the hand kernels on CUDA, their plain versions on the CPU).  The
-reference is a float64 numpy sum over every pair.
+reference is a float64 sum over every pair (common.direct_sum, on the
+same device).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import argparse
 import sys
 
 import numpy as np
+import torch
 
 from nbody_tpu_torch.config import PRESETS, SimConfig
 from nbody_tpu_torch.models.simulation import Simulation
@@ -33,18 +35,9 @@ def make_config(n: int = 20_000) -> SimConfig:
     return PRESETS["v5_bench"].replace(n=n, check_overflow=False)
 
 
-def direct_f64(state: ParticleState, cfg: SimConfig,
-               block: int = 512) -> np.ndarray:
-    """float64 accelerations of every body from every body (numpy)."""
-    pos = state.pos.cpu().numpy().astype(np.float64)
-    mass = state.mass.cpu().numpy().astype(np.float64)
-    soft = forces.soft_term(cfg)
-    out = np.zeros_like(pos)
-    for i in range(0, pos.shape[0], block):
-        d = pos[None, :, :] - pos[i:i + block, None, :]
-        w = cfg.g * mass[None, :] * (np.sum(d * d, axis=-1) + soft) ** -1.5
-        out[i:i + block] = np.sum(w[..., None] * d, axis=1)
-    return out
+def direct_f64(state: ParticleState, cfg: SimConfig) -> np.ndarray:
+    """float64 accelerations of every body from every body (as numpy)."""
+    return common.direct_sum(state, cfg, dtype=torch.float64).cpu().numpy()
 
 
 def scan(state: ParticleState, cfg: SimConfig, variants=VARIANTS,

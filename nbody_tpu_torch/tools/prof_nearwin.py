@@ -57,10 +57,9 @@ def live_lanes(bands) -> int:
     return int((popcount32(bands.win_mask) * lane_ok[:, None, :]).sum())
 
 
-def window_stats(state: ParticleState, cfg: SimConfig, skins: bool,
-                 iters: int = 5) -> dict:
-    """Windows per tile, live lanes, occupancy, and the near and far+mid
-    times of one build at `state` (skins: adaptive_drift's)."""
+def build(state: ParticleState, cfg: SimConfig, skins: bool):
+    """(ps, ms, ss, bands, tables): the Morton-sorted padded inputs and
+    one build at `state` (skins: adaptive_drift's)."""
     ps, ms, cs, perm, _, size = common.sorted_padded(state, cfg)
     d = None
     if skins:
@@ -68,7 +67,15 @@ def window_stats(state: ParticleState, cfg: SimConfig, skins: bool,
         d = adaptive_drift(common.norms_padded(state.vel[perm], npad),
                            common.norms_padded(state.acc[perm], npad),
                            cs, size, cfg)
-    _, supers, bands, tables = forces.build_bands(ps, ms, cs, cfg, drift=d)
+    _, ss, bands, tables = forces.build_bands(ps, ms, cs, cfg, drift=d)
+    return ps, ms, ss, bands, tables
+
+
+def window_stats(state: ParticleState, cfg: SimConfig, skins: bool,
+                 iters: int = 5) -> dict:
+    """Windows per tile, live lanes, occupancy, and the near and far+mid
+    times of one build at `state` (skins: adaptive_drift's)."""
+    ps, ms, supers, bands, tables = build(state, cfg, skins)
     windows = int(bands.win_cnt.sum())
     lanes = live_lanes(bands)
     near_ms = common.device_ms(

@@ -7,14 +7,18 @@ runner == inner step * steps + rebuild * n_rb can be checked.
 
 The tool's own config is SimConfig(n, rebuild_every=16, hold_farmid=4,
 check_overflow=False) (force_tile 256, super-supers on: not v5_bench),
-from the initial conditions.  Each run is timed on its second call (as
-the JAX tool's, whose first call compiles) on the host clock, with one
-device synchronisation at its end: the runner's read of s_valid at each
-rebuild is the only host read inside.  The JAX tool's flat [3N] carries
-have no counterpart.  The fit runs over `steps` and `fit_steps` (64 and
-128) by least squares; where the rebuild counts are proportional to
-the steps (at the hot state every step rebuilds) y is the bare rebuild's
-time and only x and c are fitted ("y_from" says which).
+from the initial conditions.  Each run follows one untimed call (as the
+JAX tool's timed second call follows the one that compiles) and is
+timed REPS times on the host clock, with one device synchronisation at
+its end: the runner's read of s_valid at each rebuild is the only host
+read inside.  The JAX tool's single timed call becomes the median of
+REPS (one host-clock reading per run moved x and y by 2-4x between
+identical runs).  The JAX tool's flat [3N] carries have no counterpart.
+The fit runs over `steps` and `fit_steps` (64 and 128) by least squares
+on the medians, and once on each repetition alone for the spread; where
+the rebuild counts are proportional to the steps (at the hot state
+every step rebuilds) y is the bare rebuild's time and only x and c are
+fitted ("y_from" says which).
 """
 
 from __future__ import annotations
@@ -24,16 +28,16 @@ import sys
 import time
 
 import numpy as np
-import torch
 
 from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.models.simulation import Simulation, \
-    _adaptive_rebuild_fn, _pad_cycle_state, make_adaptive_runner
+    make_adaptive_runner
 from nbody_tpu_torch.state import ParticleState
 from nbody_tpu_torch.utils.profiling import _sync
 from nbody_tpu_torch.tools import common
 
 FIT_STEPS = (64, 128)
+REPS = 3                    # timed calls of each run, median taken
 
 
 def make_config(n: int = 1_000_000) -> SimConfig:
@@ -42,27 +46,37 @@ def make_config(n: int = 1_000_000) -> SimConfig:
 
 
 def run_timed(state: ParticleState, cfg: SimConfig, steps: int) -> dict:
-    """The adaptive runner's second call from `state`: {"ms" (total),
-    "rebuilds"}."""
+    """The adaptive runner from `state`, one untimed call and then REPS
+    timed ones: {"ms" (their median total), "ms_all", "rebuilds"}."""
     run = make_adaptive_runner(cfg, steps, return_stats=True)
     _sync(run(state)[0])
-    t0 = time.perf_counter()
-    out, n_rb = run(state)
-    _sync(out)
-    return {"ms": 1e3 * (time.perf_counter() - t0), "rebuilds": n_rb}
+    times, counts = [], set()
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        out, n_rb = run(state)
+        _sync(out)
+        times.append(1e3 * (time.perf_counter() - t0))
+        counts.add(n_rb)
+    if len(counts) != 1:
+        raise RuntimeError(f"rebuild counts {counts} differ between calls "
+                           f"from one state")
+    return {"ms": float(np.median(times)), "ms_all": times,
+            "rebuilds": counts.pop()}
 
 
 def rebuild_timed(state: ParticleState, cfg: SimConfig) -> dict:
-    """One bare _adaptive_rebuild_fn at k_env = K, timed on its second
-    call: {"ms", "s_valid", "k_next"}."""
-    pos, vel, mass, acc, orig = _pad_cycle_state(state, cfg.force_tile)
-    k_env = torch.full((), cfg.rebuild_every, device=state.device)
-    rebuild = _adaptive_rebuild_fn(cfg)
-    _sync(rebuild(pos, vel, mass, acc, orig, k_env)[0])
-    t0 = time.perf_counter()
-    _, _, (s_valid, k_next) = rebuild(pos, vel, mass, acc, orig, k_env)
-    _sync(s_valid)
-    return {"ms": 1e3 * (time.perf_counter() - t0),
+    """One bare rebuild at k_env = K (common.first_rebuild), one untimed
+    call and then REPS timed ones: {"ms" (median), "ms_all", "s_valid",
+    "k_next"}."""
+    rebuild, args = common.first_rebuild(state, cfg)
+    _sync(rebuild(*args)[0][0])
+    times = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        _, _, (s_valid, k_next) = rebuild(*args)
+        _sync(s_valid)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return {"ms": float(np.median(times)), "ms_all": times,
             "s_valid": int(s_valid), "k_next": int(k_next)}
 
 
@@ -91,11 +105,18 @@ def fit(runs: dict, y_bare: float) -> dict:
 
 def closure(state: ParticleState, cfg: SimConfig, steps: int = 32,
             fit_steps=FIT_STEPS) -> dict:
-    """{"runs": {s: run_timed}, "rebuild": rebuild_timed, "fit"}."""
+    """{"runs": {s: run_timed}, "rebuild": rebuild_timed, "fit" (of the
+    medians), "spread": {"x_ms", "y_ms", "c_ms": (min, max) over the fits
+    of each repetition alone}}."""
     runs = {s: run_timed(state, cfg, s) for s in (steps, *fit_steps)}
     rebuild = rebuild_timed(state, cfg)
+    each = [fit({s: {"ms": r["ms_all"][i], "rebuilds": r["rebuilds"]}
+                 for s, r in runs.items()}, rebuild["ms_all"][i])
+            for i in range(REPS)]
     return {"runs": runs, "rebuild": rebuild,
-            "fit": fit(runs, rebuild["ms"])}
+            "fit": fit(runs, rebuild["ms"]),
+            "spread": {k: (min(f[k] for f in each), max(f[k] for f in each))
+                       for k in ("x_ms", "y_ms", "c_ms")}}
 
 
 def main(argv=None) -> int:
@@ -120,6 +141,10 @@ def main(argv=None) -> int:
           f"y {f['y_ms']:.2f} ms/rebuild ({f['y_from']}), c "
           f"{f['c_ms']:.1f} ms (rank {f['rank']}); a step with its share "
           f"of the rebuilds {f['step_ms']:.2f} ms", flush=True)
+    sp = r["spread"]
+    print(f"spread over the {REPS} repetitions' own fits: " + ", ".join(
+        f"{k[0]} {lo:.2f}..{hi:.2f}" for k, (lo, hi) in sp.items()),
+        flush=True)
     return 0
 
 

@@ -2,9 +2,13 @@
 prof_fbias, prof_fbias_cpu, prof_capdemand, prof_latestate,
 prof_tailtargets, prof_nearwin, prof_stale, prof_skinerr, prof_crash1m)
 against the same quantities computed here through nbody_tpu's functions
-(use_pallas=False; the JAX tools are scripts), on one disk galaxy made
-from a numpy seed.  Integer outputs must be bit-identical; each float's
-tolerance is named where it is checked.
+(use_pallas=False; the JAX tools are scripts), on disk galaxies made
+from numpy seeds.  Integer outputs must be bit-identical; each float's
+tolerance is named where it is checked.  The band counts are held both
+to nbody_tpu's classification on the port's upstream (stage by stage)
+and to nbody_tpu's own whole build on its own sorted inputs; where the
+whole builds part, test_skinned_build_parts_only_at_mac_ties shows the
+cause is a MAC tie.
 """
 
 import dataclasses
@@ -65,8 +69,8 @@ def _arrays(n=N, seed=5):
             acc.astype(np.float32))
 
 
-def _states(n=N):
-    a = _arrays(n)
+def _states(n=N, seed=5):
+    a = _arrays(n, seed)
     return state_from_numpy(*a, device="cpu"), JState(*map(jnp.asarray, a))
 
 
@@ -565,6 +569,12 @@ def test_skinerr_matches_jax():
 # --- 13: prof_crash1m ----------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _crash_chunk(seed=5):
+    """prof_crash1m's 3-step chunk at BASE from the seed's state."""
+    return prof_crash1m.chunk(_states(seed=seed)[0], BASE, 3)
+
+
 def test_crash1m_chunk_matches_jax():
     """The chunk is the adaptive runner (its trajectory is held to JAX's
     in test_torch_runner.py): the same state and rebuild count.  Its
@@ -572,7 +582,7 @@ def test_crash1m_chunk_matches_jax():
     classification on the port's upstream (means within 1e-6, flags
     equal), the cut's counts of nbody_tpu's build_source_cells."""
     ts, _ = _states()
-    got = prof_crash1m.chunk(ts, BASE, 3)
+    got = _crash_chunk()
     want, n_rb = tsim.make_adaptive_runner(BASE, 3, return_stats=True)(ts)
     assert all(torch.equal(a, b) for a, b in zip(got["state"], want))
     assert got["rebuilds"] == n_rb >= 1 and got["ms_per_step"] > 0
@@ -597,3 +607,199 @@ def test_crash1m_chunk_matches_jax():
     assert d["win_mean"] == pytest.approx(float(jnp.mean(bands.win_cnt)),
                                           rel=1e-6)
     assert "ovf c=0" in prof_crash1m.report(3, got)
+
+
+# --- the whole upstream: nbody_tpu's own build on its own sorted inputs ------
+#
+# The tests above hand the port's cells, supers, super-supers and
+# sub-spheres to nbody_tpu's classification.  Here nbody_tpu builds
+# everything itself (its Morton sort, skins, cut, monopoles, sub-spheres
+# and classification) from the same bodies, and the tools' integers must
+# equal its counts bit for bit.  On these seeds the two builds agree at
+# every tile; test_skinned_build_parts_only_at_mac_ties shows what a
+# disagreement is where one occurs (seed 5, adaptive skins).
+
+
+def _jown(js, tc, drift=None):
+    """nbody_tpu's own build_bands of `js` at tc: (cells, bands).  drift:
+    None, "adaptive" (adaptive_drift of its own sorted |v|, |a|) or a K
+    (the older tools' capped skin of |v| for K steps, zero-padded, on
+    30-bit codes)."""
+    bits = 30 if isinstance(drift, int) else 63
+    jc = _jc(tc.replace(morton_bits=bits))
+    ps, ms, cs, perm, _, size = _jsorted(js, jc, bits=bits)
+    npad = ps.shape[0]
+    if drift is None:
+        return _jbuild(jc, False)(ps, ms, cs)[0:3:2]
+    if drift == "adaptive":
+        d = jsim.adaptive_drift(_jnorms(js.vel, perm, npad),
+                                _jnorms(js.acc, perm, npad), cs, size, jc)
+    else:
+        v = _jnorms(js.vel, perm, npad)
+        d = jnp.minimum(v * jc.dt * drift * jc.skin_safety,
+                        jc.max_speed * jc.dt * drift) if drift > 1 \
+            else jnp.zeros_like(v)
+    return _jbuild(jc, True)(ps, ms, cs, d)[0:3:2]
+
+
+def _full_capdemand(seed, skins):
+    ts, js = _states(seed=seed)
+    cells, bands = _jown(js, BIG, "adaptive" if skins else None)
+    got = prof_capdemand.demand(ts, BIG, skins)
+    for k, f in _COUNTS.items():
+        _same_quantiles(got[k], _jq(getattr(bands, f)))
+    assert (got["g2_overflow"], got["n_cells"], got["n_child"],
+            got["n_g2"]) == (bool(cells.overflow_g2), int(cells.n_cells),
+                             int(cells.n_child), int(cells.n_g2))
+
+
+def _full_nearwin(seed, skins):
+    ts, js = _states(seed=seed)
+    _, bands = _jown(js, BIG, "adaptive" if skins else None)
+    wc = np.asarray(bands.win_cnt)
+    masks = np.asarray(bands.win_mask).astype(np.uint32)
+    bits = np.unpackbits(masks.view(np.uint8)).reshape(masks.shape + (32,))
+    live = np.arange(masks.shape[-1])[None, None, :] < wc[:, None, None]
+    got = prof_nearwin.window_stats(ts, BIG, skins, iters=1)
+    assert (got["windows"], got["live_lanes"]) == (
+        int(wc.sum()), int((bits.sum(-1) * live).sum()))
+
+
+def _full_tailtargets(seed, _):
+    ts, js = _states(seed=seed)
+    _, bands = _jown(js, BIG)
+    got = prof_tailtargets.tail(ts, BIG, top=8)
+    sup, mid, near, wins = map(np.asarray, (bands.sup_cnt, bands.mid_cnt,
+                                            bands.near_cnt, bands.win_cnt))
+    for label, arr in (("near", near), ("sup", sup), ("mid", mid)):
+        order = np.argsort(-arr, kind="stable")[:8]
+        assert [x["t"] for x in got["top"][label]] == order.tolist()
+        for x, t in zip(got["top"][label], order):
+            assert (x["sup"], x["mid"], x["near"], x["wins"]) == (
+                sup[t], mid[t], near[t], wins[t])
+
+
+def _full_latestate(seed, _):
+    ts, js = _states(seed=seed)
+    got = prof_latestate.late_state(ts, TIGHT)
+    for k in prof_latestate.KS:
+        _, bands = _jown(js, TIGHT, k)
+        g = got[k]
+        for b, f in _COUNTS.items():
+            assert g[b]["max"] == int(jnp.max(getattr(bands, f))), (k, b)
+        assert g["overflow"] == {f: bool(getattr(bands, f"{f}_overflow"))
+                                 for f in ("sup", "mid", "cmid", "near")}
+        assert g["near_at_cap"] == float(jnp.mean(
+            (bands.near_cnt >= TIGHT.near_cap).astype(jnp.float32)))
+        assert g["win_at_cap"] == float(jnp.mean(
+            (bands.win_cnt >= bands.win_first.shape[1]).astype(jnp.float32)))
+
+
+def _full_crash1m(seed, _):
+    """nbody_tpu's own build at the chunk's state against the tool's
+    bh_diagnostics."""
+    d = _crash_chunk(seed)
+    cells, bands = _jown(JState(*(jnp.asarray(x.numpy())
+                                  for x in d["state"])), BASE)
+    got = d["diagnostics"]
+    assert (got["n_cells"], got["cell_overflow"], got["g2_overflow"]) == (
+        int(cells.n_cells), bool(cells.overflow), bool(cells.overflow_g2))
+    for k in ("ss", "sup", "mid", "cmid", "near", "win"):
+        assert got[f"{k}_mean"] == pytest.approx(
+            float(jnp.mean(getattr(bands, f"{k}_cnt"))), rel=1e-6), k
+        if k != "win":
+            assert got[f"{k}_overflow"] == bool(getattr(bands,
+                                                        f"{k}_overflow"))
+
+
+@pytest.mark.parametrize("case,seed,skins", [
+    ("capdemand", 5, False), ("capdemand", 1, True), ("nearwin", 5, False),
+    ("nearwin", 1, True), ("tailtargets", 5, None), ("latestate", 1, None),
+    ("crash1m", 5, None)])
+def test_tool_counts_match_jax_full_build(case, seed, skins):
+    """The tools' integers (demand p999 and maxima, cell counts, window
+    and live-lane counts, the top tiles, flags and at-cap shares) equal
+    those of nbody_tpu's own full build on its own sorted inputs, bit for
+    bit; means within 1e-6."""
+    globals()[f"_full_{case}"](seed, skins)
+
+
+def _cmid_ratios(cells, subs, t, kid, soft):
+    """(near test, cmid test) ratios of cell_band_lists' stage 3 for child
+    `kid` against tile t's sub-spheres, in float32 from one package's
+    cells and sub-spheres: the child fails when the first is >= theta and
+    is refined to its grandchildren (cmid) when the second is < theta."""
+    def a(x):
+        return np.asarray(x.numpy() if isinstance(x, torch.Tensor) else x)
+
+    c, ch = divmod(kid, 8)
+    com, sk = a(cells.child_com)[c, ch], a(cells.child_skin)[c, ch]
+    gcom, gm = a(cells.gchild_com)[c, ch], a(cells.gchild_gmass)[c, ch]
+    lo = np.where((gm > 0)[:, None], gcom, np.inf).min(0)
+    hi = np.where((gm > 0)[:, None], gcom, -np.inf).max(0)
+    ctr = a(subs.center).reshape(-1, 8, 3)[t]
+    rad = (a(subs.radius) + a(subs.skin)).reshape(-1, 8)[t]
+
+    def dist(p):
+        gap = max(float((np.sqrt(((p - ctr) ** 2).sum(1)) - rad).min()), 0.0)
+        gap = np.float32(max(gap - sk, 0.0))
+        return np.sqrt(gap * gap + np.float32(soft))
+
+    box = np.minimum(np.maximum(ctr, lo), hi)
+    gap = max(float((np.sqrt(((box - ctr) ** 2).sum(1)) - rad).min()), 0.0)
+    gap = np.float32(max(gap - sk, 0.0))
+    dist_box = np.sqrt(gap * gap + np.float32(soft))
+    return ((a(cells.child_diam)[c, ch] + 2 * sk) / dist(com),
+            (a(cells.gchild_diam_max)[c, ch] + 2 * sk) / dist_box)
+
+
+def test_skinned_build_parts_only_at_mac_ties():
+    """Where the two packages' own builds disagree (seed 5, adaptive
+    skins at BIG: one tile), the cause is a MAC tie.  Each package sums
+    the grandchild monopoles in its own order, so the grandchild-COM box
+    moves by an ulp; a child whose cmid test sits on theta then goes to
+    cmid in one package and to near in the other.  Every other band and
+    tile is equal; each flipped child's cmid ratio lies within 1e-5 of
+    theta in both packages, on opposite sides."""
+    tc = BIG
+    jc = _jc(tc)
+    ts, js = _states(seed=5)
+    ps, ms, cs, perm, _, size = common.sorted_padded(ts, tc)
+    npad = ps.shape[0]
+    d = tsim.adaptive_drift(common.norms_padded(ts.vel[perm], npad),
+                            common.norms_padded(ts.acc[perm], npad), cs,
+                            size, tc)
+    tcl, _, tb, _ = tforces.build_bands(ps, ms, cs, tc, drift=d)
+    tsub = tforces.target_subspheres(ps, tc.force_tile, drift=d, codes=cs,
+                                      bits=tc.morton_bits)
+    jps, jms, jcs, jperm, _, jsize = _jsorted(js, jc)
+    jd = jsim.adaptive_drift(_jnorms(js.vel, jperm, npad),
+                             _jnorms(js.acc, jperm, npad), jcs, jsize, jc)
+    jcl, _, jb, _ = _jbuild(jc, True)(jps, jms, jcs, jd)
+    jsub = jforces.target_subspheres(jps, tc.force_tile, drift=jd, codes=jcs)
+    for f in ("ss", "sup", "mid"):
+        for x in ("cnt", "idx"):
+            np.testing.assert_array_equal(getattr(tb, f"{f}_{x}").numpy(),
+                                          np.asarray(getattr(jb, f"{f}_{x}")))
+
+    def live(b, f, t):
+        return set(np.asarray(getattr(b, f"{f}_idx"))[
+            t, :int(getattr(b, f"{f}_cnt")[t])].tolist())
+
+    tiles = np.nonzero((tb.cmid_cnt.numpy() != np.asarray(jb.cmid_cnt))
+                       | (tb.near_cnt.numpy() != np.asarray(jb.near_cnt)))[0]
+    assert len(tiles) == 1                      # this seed's one tie
+    theta, soft = tc.theta, tforces.soft_term(tc)
+    for t in tiles:
+        t_cmid, j_cmid = live(tb, "cmid", t), live(jb, "cmid", t)
+        flipped = t_cmid ^ j_cmid
+        assert flipped
+        assert live(tb, "near", t) ^ live(jb, "near", t) == flipped
+        for kid in flipped:
+            (tf, tr), (jf, jr) = (_cmid_ratios(cl, sub, t, kid, soft)
+                                  for cl, sub in ((tcl, tsub), (jcl, jsub)))
+            assert min(tf, jf) >= theta                 # fails in both
+            assert abs(tr - theta) <= 1e-5 * theta
+            assert abs(jr - theta) <= 1e-5 * theta
+            assert (tr < theta) == (kid in t_cmid)      # opposite sides
+            assert (jr < theta) == (kid in j_cmid)
