@@ -46,7 +46,14 @@ launch counts zeroed before each and read after it:
            skin-width cap; 16-step calls), prof_crash1m (one 128-step
            chunk), prof_rebuild and prof_runner (runs of 4, 8 and 16
            steps at the hot state, 32, 64 and 128 from the IC, each
-           timed three times); every force kernel must launch; then
+           timed three times), prof_cells, prof_groups and
+           prof_classify (stage prefixes of the rebuild), prof_winmask
+           (the pack-stage A/B at its own 4096 x 1024 runs), prof_inner,
+           prof_cycle, prof_cadence (the IC and the hot state, 32-step
+           calls) and prof_view (24 frames of the hot state, not the
+           tool's 500k IC), and the runner split at v5_bench: x from
+           prof_inner's full body, y from prof_cadence's rebuilds less
+           x; every force kernel must launch; then
            each force kernel against its plain version (the far sweep
            bit for bit) on prof_nearwin's skinned build, at the tools'
            own config (force_tile 256, super-supers) on the hot state,
@@ -112,10 +119,11 @@ from nbody_tpu_torch.ops.cells import build_source_cells
 from nbody_tpu_torch.ops.cuda import build, forces as kern
 from nbody_tpu_torch.ops.cuda import panel as panel_kern
 from nbody_tpu_torch.tools import (
-    common as tool_common, prof_capdemand, prof_crash1m, prof_fbias,
-    prof_hotcfg, prof_hotrate, prof_kilostep, prof_latestate, prof_mkhot,
-    prof_mxu, prof_nearwin, prof_rebuild, prof_runner, prof_skinerr,
-    prof_stale, prof_tailtargets)
+    common as tool_common, prof_cadence, prof_capdemand, prof_cells,
+    prof_classify, prof_crash1m, prof_cycle, prof_fbias, prof_groups,
+    prof_hotcfg, prof_hotrate, prof_inner, prof_kilostep, prof_latestate,
+    prof_mkhot, prof_mxu, prof_nearwin, prof_rebuild, prof_runner,
+    prof_skinerr, prof_stale, prof_tailtargets, prof_view, prof_winmask)
 from nbody_tpu_torch.tools.prof_nearwin import live_lanes
 from nbody_tpu_torch.utils import metrics
 
@@ -694,11 +702,12 @@ def check_syncs(sim, ic, state, chunk):
 
 
 # [tools]: the cuts of depth that keep the
-# phase under two minutes at 1M (PERF.md section 4)
+# phase under 200 s at 1M (PERF.md section 4)
 TOOLS_FBIAS_ROWS = 1 << 16   # bodies whose direct sum prof_fbias takes
 TOOLS_RATE_STEPS = 16        # run_scan calls of prof_hotrate, prof_hotcfg
 TOOLS_RUNNER_STEPS = (4, (8, 16))  # prof_runner's runs at the hot state
 TOOLS_ALPHA = 0.75           # prof_hotcfg's one skin-width cap
+TOOLS_CADENCE_STEPS = 32     # prof_cadence's runner calls (tool: 64)
 
 
 def v5_demand_report(cfg, dem):
@@ -862,6 +871,8 @@ def tools_phase(base, state, step, e_hot):
                 for s, x in r["runs"].items()))
         out[f"runner_fit_{label}"] = dict(f, spread=r["spread"])
     log("[tools] prof_runner " + " | ".join(parts))
+    out.update(stage_tools(base, hot, run, finite, {
+        k: out[f"runner_fit_{k}"] for k in ("IC", "hot")}))
     launches = dict(kern.LAUNCHES)
     log(f"[tools] launches {launches}; seconds " + ", ".join(
         f"{k} {v:.1f}" for k, v in secs.items())
@@ -891,6 +902,114 @@ def tools_phase(base, state, step, e_hot):
             raise RuntimeError(f"{k} on the tools' bands: error {rel} > "
                                f"{BOUNDS[k]}")
     return launches, (kernels, differ), out
+
+
+def stage_tools(base, hot, run, finite, fits):
+    """The rebuild's stage prefixes, the pack-stage A/B, the inner step,
+    the K-cycle, the cadence and the view rate at the hot state (`run`
+    times each and synchronises; `finite` raises on a non-finite
+    number), one [tools] line each, and the runner split at v5_bench:
+    x, an inner step, from prof_inner's full body, and y = (prof_cadence
+    ms/step x steps - x steps) / rebuilds, the rest of a run's time per
+    rebuild, beside prof_runner's `fits` ({"IC", "hot"}: its fit at its
+    own config).  Returns their summary for the [slice] line."""
+    n = hot.n
+    out = {}
+    r = run("prof_cells", lambda: prof_cells.stage_times(
+        hot, prof_cells.make_config(n)))
+    finite("prof_cells", *r["ms"].values())
+    log(f"[tools] prof_cells at the hot state ({r['n_cells']} cells), "
+        f"cumulative ms (aten ops): " + ", ".join(
+            f"{k} {v:.2f} ({r['ops'][k]})" for k, v in r["ms"].items()))
+    out["cells"] = {"ms": r["ms"], "ops": r["ops"]}
+
+    r = run("prof_groups", lambda: prof_groups.phases(
+        hot, prof_groups.make_config(n)))
+    log(f"[tools] prof_groups at the hot state (30-bit, drift "
+        f"{prof_groups.DRIFT}; {r['n_cells']} cells), median/min: "
+        + ", ".join(f"{k} {t['median_ms']:.2f}/{t['min_ms']:.2f} ms"
+                    for k, t in r["ms"].items()) + "; bands per tile "
+        + " ".join(f"{k}={s / r['tiles']:.1f}"
+                   for k, s in r["band_sums"].items()))
+    out["groups_ms"] = {k: t["median_ms"] for k, t in r["ms"].items()}
+
+    ccfg = prof_classify.make_config(n)
+    r = run("prof_classify", lambda: prof_classify.stage_times(hot, ccfg))
+    finite("prof_classify", *r["ms"].values())
+    counts = r["counts"]
+    log(f"[tools] prof_classify at the hot state (unskinned, win_pieces "
+        f"{ccfg.win_pieces}), cumulative ms (aten ops): " + ", ".join(
+            f"{k} {v:.2f} ({r['ops'][k]})" for k, v in r["ms"].items())
+        + "; mean per tile: ss {:.1f}, sup {:.1f}, mid {:.1f}, cmid {:.1f}, "
+        "near {:.1f}, windows {:.1f}".format(*(
+            float(x.to(torch.float32).mean()) for x in (
+                counts["compact0"], counts["compact1"], counts["compact2"],
+                counts["compact3"][:, 0], counts["compact3"][:, 1],
+                counts["windows"]))))
+    out["classify"] = {"ms": r["ms"], "ops": r["ops"]}
+
+    first, count = (torch.from_numpy(x).to(DEVICE)
+                    for x in prof_winmask.runs(4096, 1024))
+    r = run("prof_winmask", lambda: prof_winmask.ab(first, count))
+    log("[tools] prof_winmask (4096 rows, k 1024, win_cap 128): "
+        + prof_winmask.report(r).replace("\n", " | "))
+    out["winmask_ms"] = r["ms"]
+
+    icfg = prof_inner.make_config(n)
+    r = run("prof_inner", lambda: prof_inner.inner(hot, icfg))
+    finite("prof_inner", *r["ms_per_step"].values())
+    log("[tools] prof_inner at the hot state (32 steps a row): "
+        + prof_inner.report(r).replace("\n", " | "))
+    out["inner_ms"] = r["ms_per_step"]
+
+    r = run("prof_cycle", lambda: prof_cycle.cycle(
+        hot, prof_cycle.make_config(n)))
+    finite("prof_cycle", r["inner_ms"])
+    log("[tools] prof_cycle at the hot state: "
+        + prof_cycle.report(r).replace("\n", " | "))
+    out["cycle"] = {k: {m: b[m] for m in ("build_ms", "apply_ms")}
+                    for k, b in r["builds"].items()}
+
+    kcfg = prof_cadence.make_config(n=n)
+    parts = []
+    for label, st in (("IC", make_initial_state(kcfg, device=DEVICE)),
+                      ("hot", hot)):
+        r = run(f"prof_cadence {label}", lambda: prof_cadence.cadence(
+            st, kcfg, TOOLS_CADENCE_STEPS))
+        check_finite(f"prof_cadence {label}", r["state"])
+        parts.append(prof_cadence.report(label, r))
+    log(f"[tools] prof_cadence K={kcfg.rebuild_every} R={kcfg.hold_farmid} "
+        f"alpha={kcfg.skin_width_cap}, {TOOLS_CADENCE_STEPS}-step calls: "
+        + " | ".join(parts))
+
+    v5 = base.replace(check_overflow=False)
+    rx = run("prof_inner v5_bench", lambda: prof_inner.inner(
+        hot, v5, rows=(prof_inner.FULL,)))
+    ry = run("prof_cadence v5_bench", lambda: prof_cadence.cadence(
+        hot, v5, TOOLS_CADENCE_STEPS))
+    check_finite("prof_cadence v5_bench", ry["state"])
+    x, steps = rx["ms_per_step"][prof_inner.FULL], ry["steps"]
+    y = (ry["ms_per_step"] - x) * steps / max(ry["rebuilds"], 1)
+    finite("runner split", x, y)
+    log(f"[tools] runner split (v5_bench at the hot state): x {x:.2f} ms an "
+        f"inner step (prof_inner's full body, 32 steps, no rebuild), y "
+        f"{y:.2f} ms a rebuild (prof_cadence {ry['ms_per_step']:.2f} "
+        f"ms/step over {steps} steps with {ry['rebuilds']} rebuilds, less "
+        f"x a step); {ry['ms_per_step']:.2f} ms a step with its rebuilds; "
+        f"beside prof_runner's fit at its own config: " + ", ".join(
+            f"{k} x {f['x_ms']:.2f}, y {f['y_ms']:.2f} ({f['y_from']})"
+            for k, f in fits.items()))
+    out["runner_split"] = {"x_ms": x, "y_ms": y,
+                           "ms_per_step": ry["ms_per_step"],
+                           "rebuilds": ry["rebuilds"], "steps": steps}
+
+    r = run("prof_view", lambda: prof_view.view_rate(
+        hot, prof_view.make_config(n)))
+    finite("prof_view", r["fps"])
+    log(f"[tools] prof_view at the hot state ({r['rebuilds']} rebuilds): "
+        + prof_view.report(n, 1, r))
+    out["view"] = {k: r[k] for k in ("fps", "ms_per_frame", "frames")}
+    return out
 
 
 def probe_phase():

@@ -180,33 +180,13 @@ def cell_corner(code: torch.Tensor, depth: torch.Tensor, lo: torch.Tensor,
     return lo[None, :] + xyz * lattice
 
 
-def build_source_cells(
-    codes_sorted: torch.Tensor,
-    pos_sorted: torch.Tensor,
-    mass_sorted: torch.Tensor,
-    b: int,
-    g_const: float,
-    g_cap: int,
-    box_lo: Optional[torch.Tensor] = None,
-    box_size: Optional[torch.Tensor] = None,
-    drift_sorted: Optional[torch.Tensor] = None,
-    g2_factor: int = 8,
-    *,
-    bits: int,
-) -> SourceCells:
-    """The adaptive cut with per-cell, per-child and per-grandchild
-    monopoles.  With (box_lo, box_size), the cube the codes were
-    quantized against, cell geometry is analytic (width = size/2^depth);
-    without them it is each segment's particle bounding box.
-    `drift_sorted` [N] attaches per-segment maximum drift bounds."""
-    dev = codes_sorted.device
-    n = codes_sorted.shape[0]
-    idx = torch.arange(n, dtype=_I64, device=dev)
-    c_cap = 8 * g_cap
-    max_d = max_depth_of(bits)
-
-    lcp = adjacent_lcp(codes_sorted, bits)
-    cut_depth = _sliding_cut_depth(lcp, b, max_d)
+def _boundary_flags(lcp: torch.Tensor, cut_depth: torch.Tensor, b: int,
+                    max_d: int):
+    """(cell, child, grandchild) run-start flags [N] from the adjacent
+    LCPs and the unclamped cut depth: a level's run starts where the
+    neighbours part above its depth, and inside one finest-cell run every
+    b (b/8, b/64) rows from the run's start (row 0 always)."""
+    idx = torch.arange(lcp.shape[0], dtype=_I64, device=lcp.device)
     at_max = cut_depth >= max_d
 
     def run_start(flags):
@@ -229,6 +209,49 @@ def build_source_cells(
     g2_b = chd_b | (lcp < 3 * torch.clamp(cut_depth + 2, max=max_d))
     sub2 = max(b // 64, 1)
     g2_b = g2_b | (at_max & ((idx - run_start(chd_b)) % sub2 == 0))
+    return grp_b, chd_b, g2_b
+
+
+def _compact_starts(flags: torch.Tensor, cap: int) -> torch.Tensor:
+    """The first cap + 1 flagged rows ascending, padded with N: [cap + 1]
+    run edges (run i is rows [e[i], e[i+1]))."""
+    n = flags.shape[0]
+    idx = torch.arange(n, dtype=_I64, device=flags.device)
+    big = torch.iinfo(torch.int32).max
+    skey = torch.sort(torch.where(flags, idx, big)).values
+    if cap + 1 <= n:
+        out = skey[: cap + 1]
+    else:
+        out = torch.cat([skey, skey.new_full((cap + 1 - n,), big)])
+    return torch.clamp(out, max=n)        # padding -> n
+
+
+def build_source_cells(
+    codes_sorted: torch.Tensor,
+    pos_sorted: torch.Tensor,
+    mass_sorted: torch.Tensor,
+    b: int,
+    g_const: float,
+    g_cap: int,
+    box_lo: Optional[torch.Tensor] = None,
+    box_size: Optional[torch.Tensor] = None,
+    drift_sorted: Optional[torch.Tensor] = None,
+    g2_factor: int = 8,
+    *,
+    bits: int,
+) -> SourceCells:
+    """The adaptive cut with per-cell, per-child and per-grandchild
+    monopoles.  With (box_lo, box_size), the cube the codes were
+    quantized against, cell geometry is analytic (width = size/2^depth);
+    without them it is each segment's particle bounding box.
+    `drift_sorted` [N] attaches per-segment maximum drift bounds."""
+    n = codes_sorted.shape[0]
+    c_cap = 8 * g_cap
+    max_d = max_depth_of(bits)
+
+    lcp = adjacent_lcp(codes_sorted, bits)
+    cut_depth = _sliding_cut_depth(lcp, b, max_d)
+    grp_b, chd_b, g2_b = _boundary_flags(lcp, cut_depth, b, max_d)
 
     grp_id = _segment_ids(grp_b)
     chd_id = _segment_ids(chd_b)
@@ -240,19 +263,8 @@ def build_source_cells(
     overflow = (n_cells > g_cap) | (n_child > c_cap)
     overflow_g2 = n_g2 > c2_cap
 
-    big = torch.iinfo(torch.int32).max
-
-    def compact_starts(flags, cap):
-        skey = torch.sort(torch.where(flags, idx, big)).values
-        if cap + 1 <= n:
-            out = skey[: cap + 1]
-        else:
-            out = torch.cat([skey, torch.full((cap + 1 - n,), big,
-                                              dtype=_I64, device=dev)])
-        return torch.clamp(out, max=n)        # padding -> n
-
     def first_count(flags, cap):
-        edges = compact_starts(flags, cap)
+        edges = _compact_starts(flags, cap)
         first = edges[:cap]
         return (first, torch.clamp(edges[1:] - first, 0, n),
                 torch.clamp(first, 0, n - 1))

@@ -1,7 +1,7 @@
 """What the ported tools share: the device flag, SimConfig override
-strings, the hot state, advancing a state, timing, the Morton-sorted
-padded inputs of a band build, the runner's first rebuild, a direct sum
-and band-count quantiles.
+strings, the hot state, advancing a state, timing, counting the aten ops
+a call dispatches, the Morton-sorted padded inputs of a band build, the
+runner's first rebuild, a direct sum and band-count quantiles.
 
 A tool's measuring function takes a ParticleState and a SimConfig and
 returns a dict; its ``main(argv)`` parses the JAX tool's arguments (each
@@ -110,6 +110,46 @@ def device_ms(fn: Callable, device: torch.device, iters: int = 5,
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / iters
+
+
+def device_times(fn: Callable, device: torch.device, iters: int = 6,
+                 warmup: int = 1) -> Dict:
+    """{"median_ms", "min_ms"} of fn() on `device`, each of `iters` calls
+    after `warmup` calls timed alone: on CUDA between its own pair of
+    events (one synchronisation after the last call), on the CPU on the
+    host clock (time_fn)."""
+    if device.type != "cuda":
+        t = time_fn(fn, iters=iters, warmup=warmup)
+        return {"median_ms": t["median_ms"], "min_ms": t["min_ms"]}
+    for _ in range(warmup):
+        fn()
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+             for _ in range(iters)]
+    for start, end in marks:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize(device)
+    times = sorted(s.elapsed_time(e) for s, e in marks)
+    return {"median_ms": times[len(times) // 2], "min_ms": times[0]}
+
+
+def op_count(fn: Callable) -> int:
+    """The aten ops that fn() dispatches, views left out: each launches
+    one kernel or more on CUDA (a sort several), a view none."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        fn()
+    return c.n
 
 
 def sorted_padded(state: ParticleState, cfg: SimConfig):

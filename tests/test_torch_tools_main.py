@@ -46,6 +46,16 @@ RUNS = {
     "prof_rebuild": (lambda h, d: [N, "2", "force_tile=128"],
                      "FULL build_bands"),
     "prof_runner": (lambda h, d: [N, "4"], "fit total(s)"),
+    "prof_cells": (lambda h, d: [N], "full_skin"),
+    "prof_groups": (lambda h, d: [N], "band_lists"),
+    "prof_classify": (lambda h, d: [N, "force_tile=128", "--hot-state", h],
+                      "windows"),
+    "prof_winmask": (lambda h, d: ["256", "200"], "outputs identical"),
+    "prof_inner": (lambda h, d: [N, "2"], "full body (no rebuilds)"),
+    "prof_cycle": (lambda h, d: [N, "4"], "stepped:"),
+    "prof_cadence": (lambda h, d: ["16", "4", "2", "0.75", "--n", N,
+                                   "--hot-state", h], "hot   :"),
+    "prof_view": (lambda h, d: [N, "2"], "[pipelined] n=600"),
 }
 
 
