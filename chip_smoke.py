@@ -85,7 +85,11 @@ launch counts zeroed before each and read after it:
            1e-3), per-rank times, host reads, collective bytes and
            paths, and the three force kernels on rank 0's slab (near_span
            also on the halo + fetch sources with rebased windows)
-           against their plain versions.
+           against their plain versions;
+  [bench]  ``python -m nbody_tpu_torch.bench`` in a process of its own:
+           v5_bench in full (its drift must print as [runner]'s), then
+           N = 100,000 with a rebuild every step and bh_4m, each line
+           checked for every field and every force kernel's launches.
 Every failing check raises (non-zero exit).  The line before the last is
 one JSON object per kernel ({"kernels": [...]}, times in ms on this
 card), preceded by the card's name and power limit; the last line is
@@ -110,6 +114,12 @@ import warnings
 import numpy as np
 import torch
 
+# the H100's peaks, the operations a pair, the kernels' error bounds, the
+# drift limits, the work count and the kernel/plain pairs are the port
+# bench's (python -m nbody_tpu_torch.bench), so both read one count
+from nbody_tpu_torch.bench import (BOUNDS, DRIFT_CRITERION, DRIFT_LIMIT,
+                                   FLOPS_PER_PAIR, PEAK_BYTES, PEAK_FP32,
+                                   kernel_calls, work)
 from nbody_tpu_torch.config import PRESETS
 from nbody_tpu_torch.models import simulation
 from nbody_tpu_torch.models.simulation import Simulation, sort_by_morton
@@ -127,15 +137,6 @@ from nbody_tpu_torch.tools import (
 from nbody_tpu_torch.tools.prof_nearwin import live_lanes
 from nbody_tpu_torch.utils import metrics
 
-# H100 SXM published peaks: FP32 outside the tensor cores and HBM
-# bandwidth.
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
-FLOPS_PER_PAIR = 20        # 3 sub, 3 mul + 3 add (d2 + soft), sqrt,
-                           # division, 3 mul (m * inv^3), 3 mul + 3 add
-                           # (the terms and their sums), one op each
-# max over targets of |kernel - plain| / (|total plain acceleration| + 1e-6)
-BOUNDS = {"far_sweep": 1e-4, "table_sweep": 5e-4, "near_span": 1e-4}
 REPLACES = {
     "far_sweep": "nbody_tpu/ops/pallas/forces.py:125",
     "table_sweep": "nbody_tpu/ops/pallas/forces.py:214",
@@ -164,8 +165,6 @@ QUARTER_LANES = 16
 # PR 6's times on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6)
 PR6_FAR_MS = {"main": 0.221, "runner": 0.199, "shard": 0.397}
 PR6_PANEL_MS = {"vpu": 5.492, "mxu": 6.232, "mxu_c": 6.226}
-DRIFT_LIMIT = 0.01         # enforced: a broken schedule drifts 6.6-13%
-DRIFT_CRITERION = 0.002    # the BASELINE.json criterion, reported
 RUNNER_STEPS = 1024
 DEVICE = torch.device("cuda")
 
@@ -196,22 +195,6 @@ def sorted_inputs(cfg, state):
     codes, perm, _, _ = sort_by_morton(state.pos, cfg)
     return forces.pad_sorted(state.pos[perm], state.mass[perm], codes,
                              cfg.force_tile) + (perm,)
-
-
-def kernel_calls(cfg, ps, ms, ss, bands, tables):
-    """(kernel, plain) zero-argument callables for each of the three."""
-    b = bands
-    return {
-        "far_sweep": (lambda: kern.far_sweep(ps, ss, cfg),
-                      lambda: forces.far_sweep_torch(ps, ss, cfg)),
-        "table_sweep": (lambda: kern.table_sweep(ps, tables, cfg),
-                        lambda: forces.table_sweep_torch(ps, tables, cfg)),
-        "near_span": (lambda: kern.near_span(ps, ps, ms, b.win_first,
-                                             b.win_mask, b.win_cnt, cfg),
-                      lambda: forces.near_correction_torch(
-                          ps, ps, ms, b.win_first, b.win_mask, b.win_cnt,
-                          cfg)),
-    }
 
 
 def compare(calls, label="", far_inputs=None):
@@ -342,30 +325,17 @@ def far_ceiling_report(label, ms, bound, pairs, pr6_ms):
 
 
 def bounds_ms(cfg, ps, ss, bands, tables, n_src=None):
-    """Least time for each kernel's work on this run's data: the larger of
-    FP32 operations over the FP32 peak and bytes (inputs read once,
-    outputs written once) over the memory rate; (ms, bound_by, pairs).  n_src:
-    the near sweep's source rows (default: the targets)."""
-    n, b = ps.shape[0], cfg.force_tile
-    n_src = n if n_src is None else n_src
-    t = n // b
-    n_live = int(ss.n_supers)
-    live_rows = (bands.near_cnt.to(torch.int64)
-                 + tables.row_cnt.to(torch.int64) - cfg.near_cap)
-    rows = int(live_rows.sum())
-    lanes = live_lanes(bands)
-    windows = int(bands.win_cnt.sum())
-    work = {
-        "far_sweep": (n * n_live, 24 * n + 16 * n_live + 4),
-        "table_sweep": (b * rows, 24 * n + 16 * rows + 8 * t),
-        "near_span": (b * lanes, 24 * n + 16 * n_src + 20 * windows + 4 * t),
-    }
+    """Least time for each kernel's work on this run's data (bench.work:
+    live pairs, inputs read once, outputs written once): the larger of
+    FP32 operations over the FP32 peak and bytes over the memory rate;
+    (ms, bound_by, pairs).  n_src: the near sweep's source rows (default:
+    the targets)."""
     out = {}
-    for k, (pairs, nbytes) in work.items():
-        t_ops = FLOPS_PER_PAIR * pairs / PEAK_FP32
-        t_mem = nbytes / PEAK_BYTES
+    for k, w in work(cfg, ps, ss, bands, tables, n_src).items():
+        t_ops = FLOPS_PER_PAIR * w["live"] / PEAK_FP32
+        t_mem = w["bytes"] / PEAK_BYTES
         out[k] = (1e3 * max(t_ops, t_mem),
-                  "operations" if t_ops >= t_mem else "bytes", pairs)
+                  "operations" if t_ops >= t_mem else "bytes", w["live"])
     return out
 
 
@@ -1779,6 +1749,71 @@ def far_edges_phase(cfg):
     return total
 
 
+# [bench]: python -m nbody_tpu_torch.bench at v5_bench in full (1024
+# drift steps in chunks of 32, the selfcheck), then BASELINE.json's
+# config 2 (N = 100k, a rebuild every step) and bh_4m on the one card
+# without drift or selfcheck.  label: (arguments, seconds allowed)
+BENCH_RUNS = {
+    "v5_bench": ([], 600),
+    "v5_bench k1 n100k": (["--k", "1", "--n", "100000", "--skip-drift",
+                           "--skip-selfcheck"], 300),
+    "bh_4m": (["--preset", "bh_4m", "--skip-drift", "--skip-selfcheck"],
+              400),
+}
+BENCH_FIELDS = (
+    "metric", "value", "unit", "vs_baseline", "value_spread", "gflops",
+    "gflops_useful", "mfu", "near_lane_occupancy", "overflow_bands",
+    "overflow_cells", "overflow_g2_graceful", "overflow", "launches",
+    "peak_memory_bytes")
+BENCH_DRIFT_FIELDS = ("drift", "drift_steps", "drift_ok", "value_hot",
+                      "value_avg_1k")
+BENCH_SELFCHECK_FIELDS = tuple(f"selfcheck_{k}{s}" for s in ("", "_t128")
+                               for k in ("far", "mid", "near"))
+
+
+def bench_phase(runner_drift):
+    """`python -m nbody_tpu_torch.bench` in a process of its own for each
+    of BENCH_RUNS: its stderr logged, its one stdout line parsed and
+    checked for every field, its launches for every force kernel; the
+    full v5_bench run's drift must print as [runner]'s (both are
+    drift_protocol from the same IC in chunks of 32).  Returns {label:
+    the parsed line}."""
+    torch.cuda.empty_cache()
+    out = {}
+    for label, (extra, timeout) in BENCH_RUNS.items():
+        cmd = [sys.executable, "-m", "nbody_tpu_torch.bench"] + extra
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=timeout)
+        secs = time.perf_counter() - t0
+        for line in done.stderr.splitlines():
+            log(f"[bench {label} stderr] {line}")
+        lines = done.stdout.splitlines()
+        if done.returncode != 0 or len(lines) != 1:
+            raise RuntimeError(f"[bench {label}] exited {done.returncode} "
+                               f"with {len(lines)} stdout lines")
+        res = json.loads(lines[0])
+        want = BENCH_FIELDS
+        if not extra:
+            want += BENCH_DRIFT_FIELDS + BENCH_SELFCHECK_FIELDS
+        missing = [k for k in want if k not in res]
+        if missing:
+            raise RuntimeError(f"[bench {label}] lacks {missing}")
+        log(f"[bench {label}] peak memory "
+            f"{res['peak_memory_bytes'] / 2**30:.3f} GiB "
+            f"(torch.cuda.max_memory_allocated); {secs:.1f} s")
+        log(f"[bench {label}] {lines[0]}")
+        check_launches(f"bench {label}", res["launches"])
+        out[label] = res
+    got, want = (f"{x:.6e}" for x in (out["v5_bench"]["drift"],
+                                      runner_drift))
+    log(f"[bench] drift {got}, [runner]'s {want}")
+    if got != want:
+        raise RuntimeError(f"the bench's drift {got} is not [runner]'s "
+                           f"{want}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1912,9 +1947,11 @@ def main() -> int:
     ens_res = ensemble_phase()
     torch.cuda.empty_cache()
     shard_rows, shard_res = shard_phase()
+    bench_res = bench_phase(gate["drift"])
     for row in rows[:3]:
         k = row["name"]
-        row.update(launches_tools=launches_tools[k],
+        row.update(launches_bench=bench_res["v5_bench"]["launches"][k],
+                   launches_tools=launches_tools[k],
                    launches_cli_run=cli_res["launches_run"][k],
                    launches_cli_bench=cli_res["launches_bench"][k],
                    launches_render=render_res["launches"][k],
@@ -1928,7 +1965,7 @@ def main() -> int:
         "render_ms": {m: render_res[f"{m}_ms"] for m in RENDER_BOUNDS},
         "view": {k: v for k, v in view_res.items() if k != "launches"},
         "ensemble_ms": ens_res["ms"], "shard": shard_res,
-        "tools": tools_res}))
+        "tools": tools_res, "bench": bench_res}))
 
     print(json.dumps({"kernels": rows}))
     print(smi)
