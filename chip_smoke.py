@@ -15,9 +15,10 @@ chunk, the ensemble's and the main path's sizes), each timed against its
 20-op bound and its arithmetic's ceiling.  Then it drives the paths of
 the v5_bench preset (N = 1,000,000, force_tile 512, no_ss) with the
 launch counts zeroed before each and read after it:
-  [main]   the per-step rebuild, ``Simulation(cfg).step``: one warm-up
-           and three timed steps, a profile, a per-phase breakdown, live
-           band counts and an accuracy check against a direct sum;
+  [main]   the per-step rebuild, ``Simulation(cfg).step`` (a captured
+           CUDA graph): one warm-up (the capture) and three timed steps,
+           a profile, a per-phase breakdown, live band counts and an
+           accuracy check against a direct sum;
   [runner] the adaptive band-reuse runner, ``Simulation.run_scan``, under
            the kilostep gate, ``tools.prof_kilostep.gate`` (its config is
            v5_bench with check_overflow=False): ``metrics.drift_protocol``
@@ -35,6 +36,17 @@ launch counts zeroed before each and read after it:
            on the skinned bands and on rank 0's slab against its 20-op
            bound and its ceiling (pairs x 4 quarter-rate operations over
            16 lanes x SMs x the maximum SM clock) beside PR 6's time;
+  [graphs] the captured dispatch against eager: make_adaptive_runner's
+           loop with graphs=False and graphs=True, 32 steps from the
+           runner's hot 1M state (eager twice: is eager reproducible?),
+           then rebuilds, launches, pos/vel/acc and every tensor of the
+           last rebuild bit for bit, the host syncs of every step (one a
+           rebuild, none an inner step), wall, device-busy share, host
+           launch calls and memory (allocated and reserved: a graph's
+           pool counts only as reserved) of each, in turns eager,
+           graphed, graphed, eager; the per-step rebuild
+           (Simulation.step against step_barnes_hut) at the 1M IC and at
+           100k, bit for bit, with no sync; bh_4m's runner both ways;
   [tools]  the runner's evolved state saved through
            ``tools.prof_mkhot`` to chip_scratch/hot1m.npz and loaded back
            bit for bit, then the measuring function of each ported tool
@@ -102,6 +114,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import gc
 import io as io_module
 import json
 import os
@@ -109,6 +122,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
@@ -439,12 +453,15 @@ def profile_spans(spans, top=6):
     each run in its own record_function range and synchronized.  Per
     span: wall time, device busy time and share and kernel count, read
     from the trace's kernel events launched inside the span (all of them:
-    the ctypes-launched kernels have no aten op), and the kernels with
-    the most device time; then the profile's aten ops with the most host
-    time."""
+    the ctypes-launched kernels have no aten op, a graph's kernels carry
+    its launch's correlation id), the host calls that launched device
+    work (a kernel, or a whole graph) and the kernels with the most
+    device time; then the profile's aten ops with the most host time.
+    Returns {label: {"wall_ms", "busy_ms", "busy", "kernels",
+    "host_launches"}}."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    walls = {}
+    walls, res = {}, {}
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -471,6 +488,10 @@ def profile_spans(spans, top=6):
     launched_at = {e["args"]["correlation"]: e["ts"] for e in events
                    if e.get("cat") == "cuda_runtime"
                    and "correlation" in e.get("args", {})}
+    # host calls that launch device work: kernels, and whole graphs
+    launch_calls = [e["ts"] for e in events
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and "Launch" in e.get("name", "")]
     for label in spans:
         rng = [e for e in events if e.get("cat") == "user_annotation"
                and e.get("name") == label][0]
@@ -478,6 +499,10 @@ def profile_spans(spans, top=6):
         mine = [e for e in kernels if lo <= launched_at.get(
             e.get("args", {}).get("correlation"), e["ts"]) <= hi]
         busy_ms = sum(e["dur"] for e in mine) / 1e3
+        host = sum(lo <= t <= hi for t in launch_calls)
+        res[label] = {"wall_ms": walls[label], "busy_ms": busy_ms,
+                      "busy": busy_ms / walls[label], "kernels": len(mine),
+                      "host_launches": host}
         by_name = {}
         for e in mine:
             name = e["name"].replace("(anonymous namespace)::", "")
@@ -487,7 +512,8 @@ def profile_spans(spans, top=6):
                        reverse=True)[:top]
         log(f"[profile: {label}] wall {walls[label]:.1f} ms, device busy "
             f"{busy_ms:.1f} ms ({100 * busy_ms / walls[label]:.1f}%), "
-            f"{len(mine)} device kernels; by device time (ms): " + ", ".join(
+            f"{len(mine)} device kernels from {host} host launch calls; by "
+            f"device time (ms): " + ", ".join(
                 f"{k} {v:.2f}" for k, v in heavy))
     aten = [e for e in prof.key_averages() if e.key.startswith("aten::")]
     ops = sorted(aten, key=lambda e: e.self_cpu_time_total,
@@ -495,6 +521,7 @@ def profile_spans(spans, top=6):
     log(f"[profile] aten ops by host (self) time (ms, calls): " + ", ".join(
         f"{e.key[6:]} {e.self_cpu_time_total / 1e3:.1f} ({e.count})"
         for e in ops))
+    return res
 
 
 def band_report(label, cfg, cells, ss, bands):
@@ -573,14 +600,7 @@ def runner_phase(base, steps, chunk=32):
     log(f"[runner] energy drift {res['drift']:.6e} over {taken} steps "
         f"(E0 {res['e0']:.9e}, E1 {res['e1']:.9e}); 0.2% criterion: "
         f"{verdict} (not enforced); limit {DRIFT_LIMIT:.0%}")
-    if launches["near_span"] != taken:
-        raise RuntimeError(f"near launches {launches['near_span']} != "
-                           f"{taken} steps")
-    if not 1 <= launches["far_sweep"] <= taken:
-        raise RuntimeError(f"far launches {launches['far_sweep']} outside "
-                           f"[1, {taken}]")
-    if launches["table_sweep"] != launches["far_sweep"]:
-        raise RuntimeError("every far+mid refresh launches far and table")
+    check_runner_launches(launches, taken)
     check_finite("runner", state)
     if not res["drift"] < DRIFT_LIMIT:
         raise RuntimeError(f"energy drift {res['drift']} >= {DRIFT_LIMIT}")
@@ -625,21 +645,48 @@ def runner_phase(base, steps, chunk=32):
     far_ceiling_report("runner", timing["far_sweep"][0], bnd["far_sweep"][0],
                        bnd["far_sweep"][2], PR6_FAR_MS["runner"])
     tile_order_report("kernels runner", bands, tables)
-    check_syncs(sim, ic, nxt, chunk)
-    stepper = sim.make_stepper(nxt)
+    per_graph = dict(loop_launches(*sim._loops.values()),
+                     **check_syncs(sim, ic, nxt, chunk))
+    log(f"[runner] force-kernel launches a replay, per graph of the "
+        f"runner (the refresh_moments one from the sync check): {per_graph}")
+    res["launches_per_graph"] = per_graph
+    # a loop whose refresh graph is captured, at its first inner step
+    loop = simulation._AdaptiveLoop(cfg, nxt)
+    loop.rebuild()
+    loop.step()
+    loop.load(nxt)
+    loop.rebuild()
     profile_spans({
-        "one inner step (with a far+mid refresh)": lambda: stepper.advance(1),
+        "one inner step (with a far+mid refresh)": loop.step,
         f"one run_scan chunk of {chunk} steps": lambda: sim.run_scan(nxt,
                                                                      chunk),
     })
+    del loop
     return launches, errs, timing, differ, res
 
 
+def check_runner_launches(launches, steps):
+    """The adaptive runner's launches over `steps` steps, as counted
+    under graph replay too: one near sweep a step, one far and one table
+    sweep a far+mid refresh, and between one refresh and one a step."""
+    if launches["near_span"] != steps:
+        raise RuntimeError(f"near launches {launches['near_span']} != "
+                           f"{steps} steps")
+    if not 1 <= launches["far_sweep"] <= steps:
+        raise RuntimeError(f"far launches {launches['far_sweep']} outside "
+                           f"[1, {steps}]")
+    if launches["table_sweep"] != launches["far_sweep"]:
+        raise RuntimeError("every far+mid refresh launches far and table")
+
+
 def check_syncs(sim, ic, state, chunk):
-    """Host syncs: at most one per rebuild over a run_scan chunk from
-    `state`, none in an inner step with a far+mid refresh, and none in an
-    inner refresh_moments refresh (a non-span hold of 1 from the IC,
-    where the horizon is long)."""
+    """Host syncs, counted on graphs already captured (a capture
+    synchronizes the device): at most one per rebuild over a run_scan
+    chunk from `state` (the drift protocol captured sim's graphs), none
+    in an inner step with a far+mid refresh, and none in an inner
+    refresh_moments refresh (a non-span hold of 1 from the IC, where the
+    horizon is long).  Returns the force-kernel launches a replay of the
+    refresh_moments loop's refresh graph."""
     _, n = count_syncs(lambda: torch.ones(1, device=DEVICE).item())
     if n != 1:
         raise RuntimeError(f"sync debug mode counted {n} syncs for one .item()")
@@ -652,23 +699,331 @@ def check_syncs(sim, ic, state, chunk):
         raise RuntimeError(f"{n} host syncs for {rebuilds} rebuilds")
     rm = sim.cfg.replace(refresh_moments=True, farmid_span_rebuilds=False,
                          hold_farmid=1)
-    # (simulation, state, steps before the counted one): the first step
-    # after a rebuild refreshes far+mid; with a hold of 1 the second
-    # refreshes through refresh_farmid
+    # (config, state, steps before the counted one): the first step after
+    # a rebuild refreshes far+mid; with a hold of 1 the second refreshes
+    # through refresh_farmid
     checks = {
-        "inner step with a far+mid refresh": (sim, state, 0),
-        "inner refresh_moments refresh": (Simulation(rm, device=DEVICE), ic,
-                                          1),
+        "inner step with a far+mid refresh": (sim.cfg, state, 0),
+        "inner refresh_moments refresh": (rm, ic, 1),
     }
-    for label, (s, st, before) in checks.items():
-        stepper = s.make_stepper(st)           # rebuilds
-        stepper.advance(before)
-        rb0 = stepper.n_rebuilds
-        _, n = count_syncs(lambda: stepper.advance(1))
-        log(f"[runner] host syncs in one {label}: {n}")
-        if n or stepper.n_rebuilds != rb0:
+    for label, (cfg, st, before) in checks.items():
+        loop = simulation._AdaptiveLoop(cfg, st)
+        for _ in range(2):          # the first pass captures, the second
+            loop.load(st)           # replays
+            loop.rebuild()
+            for _ in range(before):
+                loop.step()
+            rb0 = loop.n_rebuilds
+            _, n = count_syncs(loop.step)
+        log(f"[runner] host syncs in one {label} (replayed): {n}")
+        if n or loop.n_rebuilds != rb0:
             raise RuntimeError(f"{label}: {n} host syncs, "
-                               f"{stepper.n_rebuilds - rb0} rebuilds")
+                               f"{loop.n_rebuilds - rb0} rebuilds")
+    return {"inner refreshed": graph_launches(loop._steps["refreshed"])}
+
+
+def loop_launches(loop):
+    """{graph: the force kernels one replay launches} of an adaptive
+    loop's captured graphs."""
+    graphs = {"rebuild": loop._rebuild_graph}
+    graphs.update({f"inner {k or 'no refresh'}": g
+                   for k, g in loop._steps.items()})
+    return {k: graph_launches(g) for k, g in graphs.items()
+            if g.graph is not None}
+
+
+# [graphs]: the captured dispatch against eager.  Steps of each runner
+# call from the hot state; the 100k per-step rebuild (BASELINE.json config
+# 2); per-step rebuilds at the 1M IC; steps of the bh_4m runner calls
+GRAPH_STEPS = 32
+GRAPH_K1_N, GRAPH_K1_STEPS = 100_000, 64
+GRAPH_MAIN_STEPS = 5
+GRAPH_4M_STEPS = 16
+
+
+def tree_tensors(x):
+    """The tensors of a nested tuple (a loop's `built`), in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for y in x for t in tree_tensors(y)]
+    return []
+
+
+def same_bits(a, b) -> bool:
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (x.view(ints[x.element_size()]) for x in (a, b))
+    return torch.equal(a, b)
+
+
+def state_diff(a, b):
+    """(rows of pos, vel or acc that differ in any bit, max |a - b|)."""
+    rows = torch.zeros(a.n, dtype=torch.bool, device=a.pos.device)
+    worst = 0.0
+    for x, y in zip((a.pos, a.vel, a.acc), (b.pos, b.vel, b.acc)):
+        rows |= (x.view(torch.int32) != y.view(torch.int32)).any(dim=1)
+        worst = max(worst, float((x - y).abs().max()))
+    return int(rows.sum()), worst
+
+
+def graph_launches(g):
+    """The force kernels one replay of Graphed `g` launches (None before
+    its capture)."""
+    if g.graph is None:
+        return None
+    return next((d for c, d in g.launches if c is kern.LAUNCHES), None)
+
+
+def memory_of(fn):
+    """(fn(), {the peak and the resident bytes it added to the card's
+    allocated memory and to its reserved memory}).  A graph's replay
+    allocates nothing; its pool counts only as reserved memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    base = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    sync()
+    gib = 2**30
+    return out, {
+        "peak_gib": (torch.cuda.max_memory_allocated() - base[0]) / gib,
+        "resident_gib": (torch.cuda.memory_allocated() - base[0]) / gib,
+        "peak_reserved_gib": (torch.cuda.max_memory_reserved()
+                              - base[1]) / gib,
+        "reserved_gib": (torch.cuda.memory_reserved() - base[1]) / gib}
+
+
+def memory_text(m):
+    return (f"allocated peak {m['peak_gib']:.3f} GiB, resident "
+            f"{m['resident_gib']:.3f} GiB; reserved peak "
+            f"{m['peak_reserved_gib']:.3f} GiB, held {m['reserved_gib']:.3f} "
+            f"GiB")
+
+
+def timed_ms(fn):
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def ab_times(fns):
+    """{kind: [ms, ms]} of fns {"eager": f, "graphed": g}, run in turns
+    eager, graphed, graphed, eager on one card; with each call's launches
+    and result."""
+    out = {k: [] for k in fns}
+    for kind in ("eager", "graphed", "graphed", "eager"):
+        kern.reset_launches()
+        res, ms = timed_ms(fns[kind])
+        out[kind].append((ms, dict(kern.LAUNCHES), res))
+    return out
+
+
+def graphs_phase(cfg, gate):
+    """The kilostep gate's drift protocol run again eagerly (the adaptive
+    runner through make_adaptive_runner(..., graphs=False) in 32-step
+    calls from the same IC): its drift, rates and final state against
+    `gate`'s graphed run ([runner], prof_kilostep.gate's result), bit for
+    bit.  Then the adaptive runner (graphs=False against graphs=True)
+    GRAPH_STEPS steps from the gate's hot 1M state: eager twice (is eager
+    bit-reproducible?), then graphed against eager:
+    rebuilds, launches per kernel, pos/vel/acc and every tensor of the
+    last rebuild's structures bit for bit (or pos/vel within eager's own
+    difference), the host syncs of every step (one per rebuild, none in
+    an inner step), wall time, device-busy share, host launch calls and
+    device kernels per call, peak and resident memory; the per-step
+    rebuild (Simulation.step against step_barnes_hut) at the 1M IC and
+    at 100k (steps/s, bit for bit, no sync); the bh_4m runner's peak
+    memory eager and graphed.  Returns a summary."""
+    run = simulation.make_adaptive_runner(gate["sim_cfg"], GRAPH_STEPS,
+                                          graphs=False)
+    eager_sim = types.SimpleNamespace(cfg=gate["sim_cfg"],
+                                      run_scan=lambda st, k: run(st))
+    dp = metrics.drift_protocol(eager_sim, make_initial_state(
+        gate["sim_cfg"], device=DEVICE), gate["drift_steps"],
+        chunk=GRAPH_STEPS)
+    same = all(same_bits(a, b) for a, b in zip(dp["state"], gate["state"]))
+    kilo = {"eager": {k: dp[k] for k in ("avg_steps_per_sec",
+                                         "hot_steps_per_sec", "drift")},
+            "graphed": {k: gate[k] for k in ("avg_steps_per_sec",
+                                             "hot_steps_per_sec", "drift")},
+            "bit_equal": same}
+    log(f"[graphs] the kilostep gate ({dp['drift_steps']} steps in "
+        f"{GRAPH_STEPS}-step calls from the IC) eager: avg "
+        f"{dp['avg_steps_per_sec']:.3f} steps/s, hot (last call) "
+        f"{dp['hot_steps_per_sec']:.3f}, drift {dp['drift']:.6e}; graphed "
+        f"([runner], the same call): avg {gate['avg_steps_per_sec']:.3f}, hot "
+        f"{gate['hot_steps_per_sec']:.3f}, drift {gate['drift']:.6e}; final "
+        f"states bit-equal {same}")
+    if not same:
+        raise RuntimeError("[graphs] the graphed kilostep parts from eager")
+    del run, eager_sim, dp
+    hot = gate["state"]
+    loops = {"eager": {}, "graphed": {}}
+
+    def runner(kind):
+        return lambda: simulation._run_adaptive(
+            loops[kind], cfg, hot, GRAPH_STEPS, kind == "graphed")
+
+    first, mem = {}, {}
+    for kind in ("eager", "graphed"):
+        (res, first_ms), mem[kind] = memory_of(
+            lambda: timed_ms(runner(kind)))
+        first[kind] = (res, first_ms)
+        log(f"[graphs] v5_bench from the hot state, first {kind} call of "
+            f"{GRAPH_STEPS} steps{' (captures)' if kind == 'graphed' else ''}"
+            f": {first_ms:.1f} ms, {res[1]} rebuilds; over what the card "
+            f"held before: " + memory_text(mem[kind]))
+    ab = ab_times({k: runner(k) for k in ("eager", "graphed")})
+    (e1, e_rb) = first["eager"][0]
+    e2, e2_rb = ab["eager"][0][2]
+    ee_rows, ee_max = state_diff(e1, e2)
+    log(f"[graphs] eager against eager from one state: rebuilds {e_rb} / "
+        f"{e2_rb}, {ee_rows} rows differ in some bit, max |diff| {ee_max:.3e}")
+    launches = {k: [c[1] for c in v] for k, v in ab.items()}
+    if len({json.dumps(x, sort_keys=True) for v in launches.values()
+            for x in v}) != 1:
+        raise RuntimeError(f"[graphs] launches differ: {launches}")
+    for kind, calls in ab.items():
+        for ms, _, (st, rb) in calls:
+            rows, worst = state_diff(st, e1)
+            if rb != e_rb or worst > ee_max:
+                raise RuntimeError(
+                    f"[graphs] {kind}: {rb} rebuilds (eager {e_rb}), max "
+                    f"|diff| {worst:.3e} past eager's own {ee_max:.3e}")
+    g_rows, g_max = state_diff(ab["graphed"][0][2][0], e1)
+    (e_loop,), (g_loop,) = loops["eager"].values(), loops["graphed"].values()
+    built = list(zip(tree_tensors(e_loop.built), tree_tensors(g_loop.built)))
+    built_same = sum(same_bits(a, b) for a, b in built)
+    ints_same = all(same_bits(a, b) for a, b in built
+                    if not a.is_floating_point())
+    log(f"[graphs] graphed against eager: {g_rows} rows differ in some bit "
+        f"(max |diff| {g_max:.3e}); launches per call {launches['graphed'][0]}"
+        f" both; the last rebuild's {len(built)} tensors: {built_same} "
+        f"bit-equal, every integer one {'equal' if ints_same else 'NOT'}")
+    if not ints_same or (ee_max == 0 and (g_rows or built_same < len(built))):
+        raise RuntimeError("[graphs] graphed run parts from eager")
+    ms = {k: [c[0] for c in v] for k, v in ab.items()}
+    log(f"[graphs] {GRAPH_STEPS}-step calls, eager/graphed/graphed/eager "
+        f"(ms): {ms['eager'][0]:.1f} / {ms['graphed'][0]:.1f} / "
+        f"{ms['graphed'][1]:.1f} / {ms['eager'][1]:.1f}: eager "
+        f"{GRAPH_STEPS * 1e3 / np.mean(ms['eager']):.3f} steps/s, graphed "
+        f"{GRAPH_STEPS * 1e3 / np.mean(ms['graphed']):.3f}")
+    per_graph = loop_launches(g_loop)
+    log(f"[graphs] force-kernel launches a replay, per graph: {per_graph}")
+
+    # host syncs of every step, on graphs the calls above captured
+    syncs = {}
+    for kind, loop in (("eager", e_loop), ("graphed", g_loop)):
+        loop.load(hot)
+        steps = []
+        for _ in range(GRAPH_STEPS):
+            rb0 = loop.n_rebuilds
+            _, n = count_syncs(loop.step)
+            steps.append((n, loop.n_rebuilds - rb0))
+        bad = [i for i, (n, rb) in enumerate(steps) if n != rb]
+        syncs[kind] = (sum(n for n, _ in steps), sum(rb for _, rb in steps),
+                       bad)
+        log(f"[graphs] {kind} host syncs over {GRAPH_STEPS} steps: "
+            f"{syncs[kind][0]} for {syncs[kind][1]} rebuilds; steps whose "
+            f"syncs are not their rebuilds: {bad}")
+        if kind == "graphed" and bad:
+            raise RuntimeError(f"[graphs] graphed steps {bad} sync other "
+                               f"than once a rebuild")
+    prof = profile_spans({f"{k} {GRAPH_STEPS}-step call": runner(k)
+                          for k in ("eager", "graphed")})
+    summary = {"kilostep": kilo, "hot": {
+        "ms_eager": ms["eager"], "ms_graphed": ms["graphed"],
+        "first_ms_graphed": first["graphed"][1], "rebuilds": e_rb,
+        "eager_vs_eager": [ee_rows, ee_max], "graphed_vs_eager": [g_rows,
+                                                                  g_max],
+        "built_bit_equal": [built_same, len(built)],
+        "syncs_rebuilds_bad": syncs,
+        "memory": mem,
+        "profile": {k.split()[0]: v for k, v in prof.items()},
+        "launches_per_graph": per_graph}}
+    del e_loop, g_loop, loops, first, ab, built
+
+    # the per-step rebuild: Simulation.step against step_barnes_hut
+    per_step = {}
+    for label, pcfg, n_steps in (
+            ("1M IC", cfg, GRAPH_MAIN_STEPS),
+            ("100k", cfg.replace(n=GRAPH_K1_N, rebuild_every=1),
+             GRAPH_K1_STEPS)):
+        ic = make_initial_state(pcfg, device=DEVICE)
+        sim = Simulation(pcfg, device=DEVICE)
+
+        def many(step, ic=ic, n_steps=n_steps):
+            st = ic
+            for _ in range(n_steps):
+                st = step(st)
+            return st
+
+        fns = {"eager": lambda: many(lambda s: simulation.step_barnes_hut(
+            s, pcfg)), "graphed": lambda: many(sim.step)}
+        _, mem_g = memory_of(lambda: sim.step(ic))     # captures
+        _, mem_e = memory_of(lambda: simulation.step_barnes_hut(ic, pcfg))
+        ab = ab_times(fns)
+        want = ab["eager"][0][2]
+        same = all(same_bits(a, b) for c in ab["graphed"] + ab["eager"]
+                   for a, b in zip(c[2], want))
+        st = sim.step(ic)
+        _, n_sync = count_syncs(lambda: [sim.step(st) for _ in range(3)])
+        (gstep,) = sim._steps.values()
+        ms = {k: [c[0] / n_steps for c in v] for k, v in ab.items()}
+        per_step[label] = {
+            "ms_eager": ms["eager"], "ms_graphed": ms["graphed"],
+            "steps_per_s_eager": 1e3 / np.mean(ms["eager"]),
+            "steps_per_s_graphed": 1e3 / np.mean(ms["graphed"]),
+            "memory_eager": mem_e, "memory_graphed": mem_g,
+            "bit_equal": same, "syncs_3_steps": n_sync,
+            "launches_per_graph": graph_launches(gstep._graph)}
+        log(f"[graphs] per-step rebuild at {label} (n={pcfg.n}), {n_steps} "
+            f"steps a call, eager/graphed/graphed/eager ms a step: "
+            + " / ".join(f"{x:.2f}" for x in (ms["eager"][0],
+                                              *ms["graphed"],
+                                              ms["eager"][1]))
+            + f": eager {per_step[label]['steps_per_s_eager']:.3f} steps/s, "
+            f"graphed {per_step[label]['steps_per_s_graphed']:.3f}; bit-equal"
+            f" {same}; host syncs in 3 graphed steps {n_sync}; one eager "
+            f"step: {memory_text(mem_e)}; the graphed step's first call "
+            f"(capture): {memory_text(mem_g)}")
+        if not same or n_sync:
+            raise RuntimeError(f"[graphs] per-step rebuild at {label}: "
+                               f"bit-equal {same}, {n_sync} syncs")
+        del sim, ic, ab, want, st, gstep
+
+    # bh_4m's runner on one card: peak memory eager and graphed
+    c4 = PRESETS["bh_4m"].replace(check_overflow=False)
+    ic4 = make_initial_state(c4, device=DEVICE)
+    big = {}
+    for kind in ("eager", "graphed"):
+        run = simulation.make_adaptive_runner(c4, GRAPH_4M_STEPS,
+                                              return_stats=True,
+                                              graphs=kind == "graphed")
+        _, m = memory_of(lambda: run(ic4))
+        (st, rb), ms = timed_ms(lambda: run(ic4))
+        big[kind] = dict(m, ms_per_step=ms / GRAPH_4M_STEPS, rebuilds=rb,
+                         state=st)
+        del run
+    same4 = all(same_bits(a, b) for a, b in zip(big["eager"].pop("state"),
+                                                big["graphed"].pop("state")))
+    log(f"[graphs] bh_4m from its IC, {GRAPH_4M_STEPS}-step calls: " + "; ".join(
+        f"{k} {v['ms_per_step']:.1f} ms a step (second call), {v['rebuilds']} "
+        f"rebuilds, first call: {memory_text(v)}" for k, v in big.items())
+        + f"; bit-equal {same4}")
+    if big["eager"]["rebuilds"] != big["graphed"]["rebuilds"]:
+        raise RuntimeError("[graphs] bh_4m: rebuild counts differ")
+    del ic4
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary.update(per_step=per_step, bh_4m=dict(big, bit_equal=same4))
+    return summary
 
 
 # [tools]: the cuts of depth that keep the
@@ -1495,12 +1850,15 @@ def shard_phase():
     n_pads = padded.n - ic.n
 
     def single(state):
+        # the first call captures the runner's graphs; the second is timed
+        run = simulation.make_adaptive_runner(cfg, SHARD_STEPS,
+                                              return_stats=True)
+        run(state)
         kern.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         sync()
         t0 = time.perf_counter()
-        out, rb = simulation.make_adaptive_runner(
-            cfg, SHARD_STEPS, return_stats=True)(state)
+        out, rb = run(state)
         sync()
         return (out, rb, 1e3 * (time.perf_counter() - t0) / SHARD_STEPS,
                 torch.cuda.max_memory_allocated(), dict(kern.LAUNCHES))
@@ -1519,6 +1877,7 @@ def shard_phase():
         f"{alone_rb} rebuilds, peak memory {alone_peak / 2**30:.2f} GiB")
     alone_pos, alone_vel = alone.pos.cpu(), alone.vel.cpu()
     del want, alone, padded, ic, pos, vel, mass, acc
+    gc.collect()                    # the runners' loops and graphs
     torch.cuda.empty_cache()
 
     log(f"[shard] {d} ranks on one card, backend {SHARD_BACKEND!r} "
@@ -1764,7 +2123,7 @@ BENCH_FIELDS = (
     "metric", "value", "unit", "vs_baseline", "value_spread", "gflops",
     "gflops_useful", "mfu", "near_lane_occupancy", "overflow_bands",
     "overflow_cells", "overflow_g2_graceful", "overflow", "launches",
-    "peak_memory_bytes")
+    "peak_memory_bytes", "peak_reserved_bytes")
 BENCH_DRIFT_FIELDS = ("drift", "drift_steps", "drift_ok", "value_hot",
                       "value_avg_1k")
 BENCH_SELFCHECK_FIELDS = tuple(f"selfcheck_{k}{s}" for s in ("", "_t128")
@@ -1778,6 +2137,7 @@ def bench_phase(runner_drift):
     full v5_bench run's drift must print as [runner]'s (both are
     drift_protocol from the same IC in chunks of 32).  Returns {label:
     the parsed line}."""
+    gc.collect()
     torch.cuda.empty_cache()
     out = {}
     for label, (extra, timeout) in BENCH_RUNS.items():
@@ -1801,7 +2161,9 @@ def bench_phase(runner_drift):
             raise RuntimeError(f"[bench {label}] lacks {missing}")
         log(f"[bench {label}] peak memory "
             f"{res['peak_memory_bytes'] / 2**30:.3f} GiB "
-            f"(torch.cuda.max_memory_allocated); {secs:.1f} s")
+            f"(torch.cuda.max_memory_allocated), reserved "
+            f"{res['peak_reserved_bytes'] / 2**30:.3f} GiB (with the graph "
+            f"pools); {secs:.1f} s")
         log(f"[bench {label}] {lines[0]}")
         check_launches(f"bench {label}", res["launches"])
         out[label] = res
@@ -1856,7 +2218,8 @@ def main() -> int:
     t0 = time.perf_counter()
     state = sim.step(state)
     sync()
-    log(f"[main] warm-up step (with the one-time overflow probe) "
+    log(f"[main] warm-up step (with the one-time overflow probe and the "
+        f"step graph's capture) "
         f"{1e3 * (time.perf_counter() - t0):.1f} ms")
     kern.reset_launches()
     step_ms = []
@@ -1890,6 +2253,8 @@ def main() -> int:
     near_pairs_report("kernels main", cfg, bands)
     launches, runner_err, runner_ms, runner_differ, gate = runner_phase(
         cfg, RUNNER_STEPS)
+    gate["sim_cfg"] = gate.pop("sim").cfg    # free its loop's graphs
+    graphs_res = graphs_phase(cfg, gate)
     launches_tools, (tools_kern, tools_differ), tools_res = tools_phase(
         cfg, gate["state"], gate["drift_steps"], gate["e1"])
 
@@ -1916,6 +2281,11 @@ def main() -> int:
             "rel_err_t128": geo_err["t128"][k],
             "launches_step": launches_step[k],
             "launches_per_step": launches_step[k] / len(step_ms),
+            "launches_per_graph": {
+                g: d[k] for g, d in dict(
+                    gate["launches_per_graph"],
+                    step=graphs_res["per_step"]["1M IC"][
+                        "launches_per_graph"]).items() if d is not None},
         })
         log(f"[kernels main] {k}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
             f"bound {bnd[k][0]:.3f} ms ({bnd[k][1]}, "
@@ -1945,6 +2315,7 @@ def main() -> int:
     view_res = view_phase(vcfg, vstate)
     del vstate
     ens_res = ensemble_phase()
+    gc.collect()
     torch.cuda.empty_cache()
     shard_rows, shard_res = shard_phase()
     bench_res = bench_phase(gate["drift"])
@@ -1965,7 +2336,7 @@ def main() -> int:
         "render_ms": {m: render_res[f"{m}_ms"] for m in RENDER_BOUNDS},
         "view": {k: v for k, v in view_res.items() if k != "launches"},
         "ensemble_ms": ens_res["ms"], "shard": shard_res,
-        "tools": tools_res, "bench": bench_res}))
+        "tools": tools_res, "bench": bench_res, "graphs": graphs_res}))
 
     print(json.dumps({"kernels": rows}))
     print(smi)

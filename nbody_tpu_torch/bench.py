@@ -516,9 +516,14 @@ def run(args: argparse.Namespace) -> Dict:
         out.update(selfcheck(cfg, dev))
     log(f"KE: {float(metrics.kinetic_energy(state)):.6e}")
     if on_cuda:
+        # a graph's replay allocates nothing: its temporaries live in its
+        # pool, which only the reserved peak counts
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved(dev)
         log(f"peak memory {out['peak_memory_bytes'] / 2**30:.2f} GiB "
-            f"(torch.cuda.max_memory_allocated)")
+            f"(torch.cuda.max_memory_allocated), reserved "
+            f"{out['peak_reserved_bytes'] / 2**30:.2f} GiB (with the "
+            f"graphs' pools)")
     return out
 
 

@@ -19,10 +19,18 @@ shipping path) sizes each particle's skin to its local cell width and
 reuses the structure for exactly its validity horizon.  Either may hold
 the smooth far+mid component for R = cfg.hold_farmid steps (r-RESPA).
 The design history is in nbody_tpu/models/simulation.py.
+
+On CUDA the adaptive runner's rebuild and inner steps, and the per-step
+rebuild of `Simulation.step`, run as captured CUDA graphs
+(utils/graphs.Graphed) over buffers they own: the counterpart of the
+JAX package's one jitted program, with no per-kernel launch from the
+host.  The host keeps the schedule as integers and replays the graph
+each rebuild or step needs.
 """
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Callable, Optional
 
@@ -33,6 +41,7 @@ from nbody_tpu_torch.state import ParticleState, default_device
 from nbody_tpu_torch.ops import bbox, morton, forces, integrate as integ
 from nbody_tpu_torch.ops.cells import build_source_cells
 from nbody_tpu_torch.ops.tree import build_tree
+from nbody_tpu_torch.utils.graphs import Graphed, capturable
 
 
 def sort_by_morton(pos: torch.Tensor, cfg: SimConfig):
@@ -173,7 +182,10 @@ def hold_predict_pos(pos, vel, acc, tau, cfg: SimConfig):
     """Target sampling positions of a held far+mid refresh
     (cfg.hold_predict): the current positions (0), the ballistic
     midpoint (1) or the quadratic midpoint (2).  0 ships: midpoint
-    prediction measured harmful in the contracted core."""
+    prediction measured harmful in the contracted core.  `tau` is a float
+    or a 0-d float64 tensor (the adaptive loop's, which a captured graph
+    reads at replay); both give the same float32 result, since 0.5 tau^2
+    is then computed in float64, as the float path computes it."""
     if cfg.hold_predict == 0:
         return pos
     p = pos + vel * tau
@@ -235,6 +247,14 @@ def _adaptive_rebuild_fn(cfg: SimConfig):
     return rebuild
 
 
+def _graphed(cfg: SimConfig, graphs: bool) -> bool:
+    """Whether a runner of `cfg` captures graphs (on CUDA): with the hand
+    kernels only.  The plain sweeps (cfg.use_pallas=False, the command
+    line's --no-pallas) read their live widths back to the host, which
+    no capture can hold, so they run eagerly."""
+    return graphs and cfg.use_pallas
+
+
 class _AdaptiveLoop:
     """The adaptive schedule as a host loop, one `step()` per step.
 
@@ -254,46 +274,108 @@ class _AdaptiveLoop:
     rebuild recomputes every source moment from live positions at the
     frozen cut (forces.refresh_farmid).
 
+    The loop owns its buffers: the padded fields (pos, vel, mass, acc,
+    orig), the held far+mid (afm), the envelope horizon k_env and the
+    refresh's prediction time tau (0-d, float64).  The rebuild and each
+    kind of inner step (no refresh, a refresh from the frozen moments, a
+    refresh that recomputes them) read the buffers and write their
+    results back into them, so on CUDA each is one captured graph
+    (utils/graphs.Graphed), replayed at every rebuild and step, unless
+    `graphs` is False or the config has no hand kernels (_graphed); the
+    host keeps the schedule and picks the graph.
+    The rebuild graph's live outputs are the frozen structures
+    (`built`) that the inner-step graphs read.  `load` starts the loop
+    again from another state of the same padded row count, reusing the
+    graphs.
+
     The schedule is shared with the multi-device loop
     (parallel/shard.py), which overrides the rebuild (`_build`), the
-    moment refresh, the near band and the snapshot."""
+    moment refresh, the near band and the snapshot, and runs eagerly."""
 
-    def __init__(self, cfg: SimConfig, state: ParticleState):
+    def __init__(self, cfg: SimConfig, state: ParticleState,
+                 graphs: bool = True):
+        graphs = _graphed(cfg, graphs)
         self._start(cfg, state.n, state.mass,
-                    *_pad_cycle_state(state, cfg.force_tile))
+                    *_pad_cycle_state(state, cfg.force_tile), graphs=graphs)
         self._rebuild_fn = _adaptive_rebuild_fn(cfg)
+        self._rebuild_graph = self._graphed(self._rebuild_body, graphs)
 
     def _start(self, cfg: SimConfig, n: int, mass0, pos, vel, mass, acc,
-               orig) -> None:
-        """The schedule's state over the (padded) rows it integrates."""
+               orig, graphs: bool) -> None:
+        """The buffers over the (padded) rows the loop integrates, its
+        inner-step graphs, and the schedule's state."""
         self.cfg = cfg
         self.r = max(1, cfg.hold_farmid)
         self.span = cfg.farmid_span_rebuilds
+        self.pos, self.vel, self.mass, self.acc, self.orig = (
+            x.clone() for x in (pos, vel, mass, acc, orig))
+        dev = self.pos.device
+        self.afm = torch.zeros_like(self.pos)
+        self.k_env = torch.empty((), dtype=torch.int64, device=dev)
+        self.tau = torch.zeros((), dtype=torch.float64, device=dev)
+        # the loop's graphs replay one at a time on one stream and keep
+        # their results in the buffers or in the rebuild's live outputs,
+        # so they share one memory pool
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if graphs and capturable(dev) else None)
+        self._steps = {kind: self._graphed(functools.partial(self._inner,
+                                                             kind), graphs)
+                       for kind in (None, "farmid", "refreshed")}
+        self._reset(n, mass0)
+
+    def _graphed(self, fn, graphs: bool) -> Graphed:
+        return Graphed(fn, (self.pos, self.vel, self.mass, self.acc,
+                            self.orig, self.afm, self.k_env),
+                       self.pos.device, graphs, self._pool)
+
+    def _reset(self, n: int, mass0) -> None:
         self.n = n
         self.mass0 = mass0
-        self.pos, self.vel, self.mass, self.acc, self.orig = (pos, vel, mass,
-                                                              acc, orig)
-        # a fill, not a copy from the host (which would synchronize)
-        self.k_env = torch.full((), cfg.rebuild_every, device=pos.device)
-        self.afm = torch.zeros_like(self.pos)
+        # fills, not copies from the host (which would synchronize)
+        self.k_env.fill_(self.cfg.rebuild_every)
+        self.afm.zero_()
         # span: the age starts at R, so the very first step refreshes
         self.afm_age = self.r if self.span else 0
         self.left = 0          # steps the current structure stays valid
         self.j = 0             # steps since the last rebuild
         self.r_eff = self.r
         self.n_rebuilds = 0
-        self.built = None
 
-    def _build(self) -> int:
-        """Rebuild: the fields in the new order, self.built, self.k_env;
-        returns the validity horizon (the one host read)."""
-        fields, self.built, (s_valid_t, self.k_env) = self._rebuild_fn(
+    def load(self, state: ParticleState) -> None:
+        """Start again from `state`, whose padded row count must be the
+        loop's: its fields into the buffers, and k_env, the held far+mid
+        and the host counters as a new loop has them, so that two runs
+        from one state are the same run."""
+        fields = _pad_cycle_state(state, self.cfg.force_tile)
+        if fields[0].shape != self.pos.shape:
+            raise ValueError(f"{state.n} bodies pad to {fields[0].shape[0]} "
+                             f"rows, the loop has {self.pos.shape[0]}")
+        self._store(*fields)
+        self._reset(state.n, state.mass)
+
+    def _store(self, pos, vel, mass, acc, orig) -> None:
+        for buf, x in zip((self.pos, self.vel, self.mass, self.acc,
+                           self.orig), (pos, vel, mass, acc, orig)):
+            buf.copy_(x)
+
+    def _rebuild_body(self):
+        """The rebuild over the buffers: the fields (and the held far+mid
+        when it spans rebuilds) in the new order and the next k_env
+        written back; returns (built, s_valid)."""
+        fields, built, (s_valid, k_next) = self._rebuild_fn(
             self.pos, self.vel, self.mass, self.acc, self.orig, self.k_env,
             self.afm if self.span else None)
-        self.pos, self.vel, self.mass, self.acc, self.orig, afm = fields
+        self._store(*fields[:5])
         if self.span:
-            self.afm = afm
-        return int(s_valid_t.item())
+            self.afm.copy_(fields[5])
+        self.k_env.copy_(k_next)
+        return built, s_valid
+
+    def _build(self) -> int:
+        """Rebuild: the buffers in the new order, self.built, self.k_env;
+        returns the validity horizon (the one host read)."""
+        self.built, s_valid = self._rebuild_graph()
+        return int(s_valid.item())
 
     def rebuild(self) -> None:
         s_valid = self._build()
@@ -318,6 +400,24 @@ class _AdaptiveLoop:
         return forces.apply_near(self.pos, self.pos, self.mass, bands,
                                  self.cfg)
 
+    def _inner(self, refresh: Optional[str]) -> None:
+        """One inner step over the buffers.  With `refresh` ("farmid":
+        from the frozen moments, "refreshed": every moment recomputed)
+        far+mid is evaluated afresh at the positions hold_predict samples
+        `tau` ahead; then the near band and the integration."""
+        cfg = self.cfg
+        if refresh is not None:
+            p_mid = hold_predict_pos(self.pos, self.vel, self.acc, self.tau,
+                                     cfg)
+            self.afm.copy_(self._farmid_refreshed(p_mid)
+                           if refresh == "refreshed" else self._farmid(p_mid))
+        a = self.afm + self._near()
+        st = integ.integrate(ParticleState(pos=self.pos, vel=self.vel,
+                                           mass=self.mass, acc=a), a, cfg)
+        for buf, x in ((self.pos, st.pos), (self.vel, st.vel),
+                       (self.acc, a)):
+            buf.copy_(x)
+
     def step(self) -> None:
         cfg = self.cfg
         if self.left <= 0:
@@ -326,20 +426,15 @@ class _AdaptiveLoop:
             refresh = self.afm_age >= self.r_eff
         else:
             refresh = self.j == 0 or self.afm_age >= self.r
+        kind = None
         if refresh:
-            tau = 0.5 * (self.r_eff - 1) * cfg.dt
-            p_mid = hold_predict_pos(self.pos, self.vel, self.acc, tau, cfg)
-            if cfg.refresh_moments and self.j > 0:
-                self.afm = self._farmid_refreshed(p_mid)
-            else:
-                self.afm = self._farmid(p_mid)
+            self.tau.fill_(0.5 * (self.r_eff - 1) * cfg.dt)
+            kind = ("refreshed" if cfg.refresh_moments and self.j > 0
+                    else "farmid")
             self.afm_age = 1
         else:
             self.afm_age += 1
-        a = self.afm + self._near()
-        st = integ.integrate(ParticleState(pos=self.pos, vel=self.vel,
-                                           mass=self.mass, acc=a), a, cfg)
-        self.pos, self.vel, self.acc = st.pos, st.vel, st.acc
+        self._steps[kind]()
         self.left -= 1
         self.j += 1
 
@@ -348,22 +443,41 @@ class _AdaptiveLoop:
                       self.mass0)
 
 
+def _run_adaptive(loops: dict, cfg: SimConfig, state: ParticleState,
+                  n_steps: int, graphs: bool = True):
+    """n_steps of the adaptive schedule from `state`, starting with a
+    rebuild, on the loop of `loops` for the state's padded row count and
+    device (made on first use, its graphs captured as it meets them):
+    (the state after, the number of rebuilds)."""
+    rows = -(-state.n // cfg.force_tile) * cfg.force_tile
+    key = (cfg, rows, state.device)
+    loop = loops.get(key)
+    if loop is None:
+        loop = loops[key] = _AdaptiveLoop(cfg, state, graphs)
+    else:
+        loop.load(state)
+    for _ in range(n_steps):
+        loop.step()
+    return loop.snapshot(), loop.n_rebuilds
+
+
 def make_adaptive_runner(cfg: SimConfig, n_steps: int,
-                         return_stats: bool = False):
+                         return_stats: bool = False, graphs: bool = True):
     """A function advancing a state by n_steps with adaptive,
     step-granular band rebuilds (cfg.adaptive_rebuild), starting with a
     rebuild.  Each rebuild gives every particle the envelope
     min(v dt K safety, skin_width_cap * local cell width) and reuses the
     structure for exactly its validity horizon, so the hot core falls
     back to per-step rebuilds while calm epochs coast for ~K steps.
-    With return_stats it returns (state, number of rebuilds)."""
+    With return_stats it returns (state, number of rebuilds).  On CUDA
+    the rebuild and the inner steps run as captured graphs (unless
+    `graphs` is False), which the function keeps for each padded row
+    count it meets and replays in its later calls."""
+    loops: dict = {}
 
     def run(state: ParticleState):
-        loop = _AdaptiveLoop(cfg, state)
-        for _ in range(n_steps):
-            loop.step()
-        out = loop.snapshot()
-        return (out, loop.n_rebuilds) if return_stats else out
+        out, n_rb = _run_adaptive(loops, cfg, state, n_steps, graphs)
+        return (out, n_rb) if return_stats else out
 
     return run
 
@@ -374,7 +488,8 @@ class AdaptiveStepper:
     structures, the validity countdown and the held far+mid stay on the
     device across `advance` calls, so a viewer stepping a few steps per
     frame rebuilds only when the physics demands it (`run_scan` starts
-    every call with a rebuild).  The first rebuild happens here."""
+    every call with a rebuild).  The first rebuild happens here.  The
+    stepper's loop keeps its captured graphs (on CUDA) across calls."""
 
     def __init__(self, cfg: SimConfig, state: ParticleState):
         self.cfg = cfg
@@ -394,7 +509,8 @@ class AdaptiveStepper:
     @property
     def pos_sorted(self) -> torch.Tensor:
         """Live positions in the internal Morton order, padded with
-        clones of the last particle (enough for rendering)."""
+        clones of the last particle (enough for rendering); the loop's
+        buffer, which the next `advance` overwrites."""
         return self._loop.pos
 
     @property
@@ -446,6 +562,33 @@ def make_cycle_runner(cfg: SimConfig, n_cycles: int, k: int):
 # ---------------------------------------------------------------------------
 
 
+class _GraphedStep:
+    """step_barnes_hut over buffers of n bodies: on CUDA, with the hand
+    kernels (_graphed), one captured graph (utils/graphs.Graphed) that
+    reads nothing back.  A call copies the state in and returns copies
+    of the results, which the next replay overwrites in the graph's
+    outputs."""
+
+    def __init__(self, cfg: SimConfig, state: ParticleState):
+        self.cfg = cfg
+        self.pos, self.vel, self.mass = (x.clone() for x in state[:3])
+        self._graph = Graphed(self._body, (), state.device,
+                              _graphed(cfg, True))
+
+    def _body(self) -> ParticleState:
+        # the step reads no acceleration
+        return step_barnes_hut(ParticleState(pos=self.pos, vel=self.vel,
+                                             mass=self.mass, acc=None),
+                               self.cfg)
+
+    def __call__(self, state: ParticleState) -> ParticleState:
+        for buf, x in zip((self.pos, self.vel, self.mass), state[:3]):
+            buf.copy_(x)
+        out = self._graph()
+        return ParticleState(pos=out.pos.clone(), vel=out.vel.clone(),
+                             mass=state.mass, acc=out.acc.clone())
+
+
 class Simulation:
     """Owns a config, a device and the step functions.
 
@@ -455,7 +598,15 @@ class Simulation:
     when no GPU is present; pass device="cpu" to run the plain versions
     on the CPU.  `n_rebuilds` counts the adaptive runner's band rebuilds
     over every `run_scan` call; `walk_stats` sums the rope walk's
-    lockstep iterations and host reads over every reference step."""
+    lockstep iterations and host reads over every reference step.
+
+    On CUDA the per-step rebuild and the adaptive runner run as captured
+    CUDA graphs (utils/graphs.Graphed), the counterpart of the JAX
+    package's jit caches: the Simulation keeps one per-step graph for
+    each body count and one adaptive loop for each padded row count it
+    meets, and replays them in every later call, whatever its length.
+    The direct step, the rope-walk oracle, the fixed-K cycles and the
+    plain sweeps (cfg.use_pallas=False) run eagerly."""
 
     def __init__(self, cfg: SimConfig, method: str = "barnes_hut",
                  device=None):
@@ -466,6 +617,8 @@ class Simulation:
         self.device = default_device(device)
         self.n_rebuilds = 0
         self.walk_stats = {"iterations": 0, "host_reads": 0}
+        self._steps: dict = {}      # (cfg, n, device) -> _GraphedStep
+        self._loops: dict = {}      # (cfg, rows, device) -> _AdaptiveLoop
         self._overflow_checked = method != "barnes_hut" or not cfg.check_overflow
 
     def init_state(self) -> ParticleState:
@@ -484,7 +637,11 @@ class Simulation:
         if self.method == "barnes_hut_reference":
             return step_barnes_hut(state, self.cfg, "reference",
                                    self.walk_stats)
-        return step_barnes_hut(state, self.cfg)
+        key = (self.cfg, state.n, state.device)
+        step = self._steps.get(key)
+        if step is None:
+            step = self._steps[key] = _GraphedStep(self.cfg, state)
+        return step(state)
 
     def step(self, state: ParticleState) -> ParticleState:
         self._check_device(state)
@@ -523,8 +680,8 @@ class Simulation:
                 state = self._step(state)
             return state
         if self.cfg.adaptive_rebuild:
-            state, n_rb = make_adaptive_runner(self.cfg, n_steps,
-                                               return_stats=True)(state)
+            state, n_rb = _run_adaptive(self._loops, self.cfg, state,
+                                        n_steps)
             self.n_rebuilds += n_rb
             return state
         n_cycles, rem = divmod(n_steps, k)

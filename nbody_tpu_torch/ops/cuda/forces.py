@@ -7,7 +7,8 @@ version; on CUDA tensors it checks device, dtype, shape and contiguity,
 allocates the output (and, for the two per-tile kernels, the
 heaviest-first tile order), launches the kernel on the current stream
 and raises if the launch failed.  ``LAUNCHES`` counts kernel launches per
-wrapper, so a run can show that its path went through the kernels.
+wrapper, so a run can show that its path went through the kernels; under
+a CUDA graph's replay too (``launch.uncounted`` and ``launch.add``).
 """
 
 from __future__ import annotations
@@ -17,9 +18,10 @@ import torch
 from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.ops import forces as _forces
 from nbody_tpu_torch.ops.cuda import build
-from nbody_tpu_torch.ops.cuda.launch import check, launched, on_cpu, stream
+from nbody_tpu_torch.ops.cuda.launch import (check, counter, launched,
+                                             on_cpu, stream)
 
-LAUNCHES = {"far_sweep": 0, "table_sweep": 0, "near_span": 0}
+LAUNCHES = counter("far_sweep", "table_sweep", "near_span")
 
 
 def reset_launches() -> None:

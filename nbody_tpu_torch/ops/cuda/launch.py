@@ -1,12 +1,56 @@
 """What every kernel wrapper does around a launch: pick the plain version
 for CPU tensors, validate arguments, name the stream, check the launch's
-return code and count it."""
+return code and count it.
+
+The counts are plain integers that a wrapper adds to where it launches
+its kernel.  A kernel launched from a CUDA graph is not launched from
+Python: a capture calls the wrapper without running the kernel, and a
+replay runs it without calling the wrapper.  So every count is
+registered here (``counter``): a capture runs inside ``uncounted``, which
+takes its launches back out and records them, and each replay ``add``s
+that record, so a reader sees the launches that ran.
+"""
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Iterator, List, Tuple
 
 import torch
+
+_COUNTERS: List[Dict[str, int]] = []
+
+# what a block of launches added to each registered count
+Launches = List[Tuple[Dict[str, int], Dict[str, int]]]
+
+
+def counter(*names: str) -> Dict[str, int]:
+    """A registered launch count per kernel name, all at zero."""
+    counts = dict.fromkeys(names, 0)
+    _COUNTERS.append(counts)
+    return counts
+
+
+@contextlib.contextmanager
+def uncounted() -> Iterator[Launches]:
+    """Launches counted inside the block are taken back out of every
+    count when it ends.  Yields a list that then holds, per registered
+    count, what the block added to it."""
+    before = [(c, dict(c)) for c in _COUNTERS]
+    made: Launches = []
+    try:
+        yield made
+    finally:
+        for c, b in before:
+            made.append((c, {k: c[k] - b.get(k, 0) for k in c}))
+            c.update(b)
+
+
+def add(made: Launches) -> None:
+    """Count once more what a block recorded by `uncounted` launched."""
+    for c, d in made:
+        for k, v in d.items():
+            c[k] += v
 
 
 def on_cpu(*xs: torch.Tensor) -> bool:

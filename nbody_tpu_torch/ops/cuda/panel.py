@@ -14,10 +14,11 @@ from __future__ import annotations
 import torch
 
 from nbody_tpu_torch.ops.cuda import build
-from nbody_tpu_torch.ops.cuda.launch import check, launched, on_cpu, stream
+from nbody_tpu_torch.ops.cuda.launch import (check, counter, launched,
+                                             on_cpu, stream)
 from nbody_tpu_torch.ops import panel as _plain
 
-LAUNCHES = {f"panel_{v}": 0 for v in _plain.VARIANTS}
+LAUNCHES = counter(*(f"panel_{v}" for v in _plain.VARIANTS))
 
 
 def reset_launches() -> None:

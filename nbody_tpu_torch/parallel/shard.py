@@ -619,7 +619,9 @@ class _ShardedAdaptiveLoop(_AdaptiveLoop):
 
     def __init__(self, cfg: SimConfig, mesh: Mesh, n: int, mass0, pos, vel,
                  mass, acc, orig):
-        self._start(cfg, n, mass0, pos, vel, mass, acc, orig)
+        # eager: the gloo collectives stage through host memory and the
+        # rebuild reads its predicates back, which no graph can capture
+        self._start(cfg, n, mass0, pos, vel, mass, acc, orig, graphs=False)
         self.mesh = mesh
         self.glob = None
         self.host_reads = 0
@@ -631,10 +633,11 @@ class _ShardedAdaptiveLoop(_AdaptiveLoop):
                               self.orig, self.cfg, self.cfg.rebuild_every,
                               adaptive=True, mesh=self.mesh, k_env=self.k_env,
                               afm=self.afm if self.span else None)
-        self.pos, self.vel, self.mass, self.acc, self.orig = rb.slab
-        self.built, self.glob, self.k_env = rb.built, rb.glob, rb.k_next
+        self._store(*rb.slab)
+        self.built, self.glob = rb.built, rb.glob
+        self.k_env.copy_(rb.k_next)
         if self.span:
-            self.afm = rb.afm
+            self.afm.copy_(rb.afm)
         self.host_reads += 1
         self.paths[f"near {rb.paths[0]}"] += 1
         self.paths[f"reslab {rb.paths[1]}"] += 1
