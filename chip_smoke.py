@@ -1020,7 +1020,6 @@ def graphs_phase(cfg, gate):
     if big["eager"]["rebuilds"] != big["graphed"]["rebuilds"]:
         raise RuntimeError("[graphs] bh_4m: rebuild counts differ")
     del ic4
-    gc.collect()
     torch.cuda.empty_cache()
     summary.update(per_step=per_step, bh_4m=dict(big, bit_equal=same4))
     return summary
@@ -1877,7 +1876,6 @@ def shard_phase():
         f"{alone_rb} rebuilds, peak memory {alone_peak / 2**30:.2f} GiB")
     alone_pos, alone_vel = alone.pos.cpu(), alone.vel.cpu()
     del want, alone, padded, ic, pos, vel, mass, acc
-    gc.collect()                    # the runners' loops and graphs
     torch.cuda.empty_cache()
 
     log(f"[shard] {d} ranks on one card, backend {SHARD_BACKEND!r} "
@@ -2137,7 +2135,6 @@ def bench_phase(runner_drift):
     full v5_bench run's drift must print as [runner]'s (both are
     drift_protocol from the same IC in chunks of 32).  Returns {label:
     the parsed line}."""
-    gc.collect()
     torch.cuda.empty_cache()
     out = {}
     for label, (extra, timeout) in BENCH_RUNS.items():
@@ -2315,7 +2312,6 @@ def main() -> int:
     view_res = view_phase(vcfg, vstate)
     del vstate
     ens_res = ensemble_phase()
-    gc.collect()
     torch.cuda.empty_cache()
     shard_rows, shard_res = shard_phase()
     bench_res = bench_phase(gate["drift"])

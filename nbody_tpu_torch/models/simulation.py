@@ -30,7 +30,6 @@ each rebuild or step needs.
 
 from __future__ import annotations
 
-import functools
 import warnings
 from typing import Callable, Optional
 
@@ -318,15 +317,14 @@ class _AdaptiveLoop:
         # so they share one memory pool
         self._pool = (torch.cuda.graph_pool_handle()
                       if graphs and capturable(dev) else None)
-        self._steps = {kind: self._graphed(functools.partial(self._inner,
-                                                             kind), graphs)
+        self._steps = {kind: self._graphed(self._inner, graphs, (kind,))
                        for kind in (None, "farmid", "refreshed")}
         self._reset(n, mass0)
 
-    def _graphed(self, fn, graphs: bool) -> Graphed:
+    def _graphed(self, fn, graphs: bool, args: tuple = ()) -> Graphed:
         return Graphed(fn, (self.pos, self.vel, self.mass, self.acc,
                             self.orig, self.afm, self.k_env),
-                       self.pos.device, graphs, self._pool)
+                       self.pos.device, graphs, self._pool, args)
 
     def _reset(self, n: int, mass0) -> None:
         self.n = n

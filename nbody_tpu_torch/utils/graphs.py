@@ -11,6 +11,7 @@ buffers, so the CPU tests run the code that the card replays.
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -24,15 +25,18 @@ def capturable(device: torch.device) -> bool:
 
 
 class Graphed:
-    """`fn()` captured once as a CUDA graph and replayed, on CUDA; called
-    directly on any other device or when `capture` is False.
+    """`fn(*args)` captured once as a CUDA graph and replayed, on CUDA;
+    called directly on any other device or when `capture` is False.
 
-    `fn` takes no arguments.  It reads tensors that outlive it (its
-    owner's static buffers, or another graph's live outputs) and writes
-    its results back into them in place; what it returns are its live
-    outputs, tensors that every replay overwrites in place.  Every scalar
-    it reads from the host is baked into the graph at capture, so a value
-    that changes between calls must live in a device buffer.
+    `fn` is a bound method of the graph's owner, held weakly: the owner
+    holds the graph, and owner, graph and memory pool go with the owner's
+    last reference, not at a later cycle collection.  It reads tensors
+    that outlive it (the owner's static buffers, or another graph's live
+    outputs) and writes its results back into them in place; what it
+    returns are its live outputs, tensors that every replay overwrites in
+    place.  Every scalar it reads from the host, `args` included, is
+    baked into the graph at capture, so a value that changes between
+    calls must live in a device buffer.
 
     The first call warms `fn` up on a side stream (the kernel libraries
     load and every op's lazy set-up runs outside the capture, as
@@ -51,8 +55,9 @@ class Graphed:
 
     def __init__(self, fn: Callable, buffers: Sequence[torch.Tensor],
                  device: torch.device, capture: bool = True,
-                 pool: Optional[tuple] = None):
-        self.fn = fn
+                 pool: Optional[tuple] = None, args: tuple = ()):
+        self._fn = weakref.WeakMethod(fn)
+        self.args = args
         self.buffers = tuple(buffers)
         self.device = torch.device(device)
         self.captures = capture and capturable(self.device)
@@ -61,9 +66,13 @@ class Graphed:
         self.out = None
         self.launches: launch.Launches = []
 
+    def run(self):
+        """fn(*args), eagerly."""
+        return self._fn()(*self.args)
+
     def __call__(self):
         if not self.captures:
-            return self.fn()
+            return self.run()
         if self.graph is None:
             self._capture()
         self.graph.replay()
@@ -85,7 +94,7 @@ class Graphed:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self.fn()
+            self.run()
         current.wait_stream(side)
 
     def _record(self):
@@ -97,7 +106,7 @@ class Graphed:
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                out = self.fn()
+                out = self.run()
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
         return graph, out

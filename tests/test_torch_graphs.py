@@ -9,6 +9,8 @@ far-sweep counter read them, and that neither a CPU run nor the sharded
 loop enters a capture."""
 
 import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import jax
@@ -180,22 +182,24 @@ def _copy_into(dst, src):
 class _Replay:
     """A CUDA graph's CPU stand-in: a replay runs the function again, its
     launches uncounted (the graph's record adds them), and writes its
-    outputs into the captured ones in place."""
+    outputs into the captured ones in place.  It holds its Graphed
+    weakly, as a CUDA graph holds nothing of it."""
 
     def __init__(self, g):
-        self.g = g
+        self.g = weakref.ref(g)
 
     def replay(self):
+        g = self.g()
         with launch.uncounted():
-            out = self.g.fn()
-        _copy_into(self.g.out, out)
+            out = g.run()
+        _copy_into(g.out, out)
 
 
 def _record(self):
     """A capture's CPU stand-in: the function run once and its buffers put
     back, since a capture runs nothing."""
     saved = [b.clone() for b in self.buffers]
-    out = self.fn()
+    out = self.run()
     for b, s in zip(self.buffers, saved):
         b.copy_(s)
     return _Replay(self), out
@@ -206,7 +210,7 @@ def replayed(monkeypatch):
     """Every Graphed captures through the stand-ins, and the plain sweeps
     count a launch per call as their kernels' wrappers do."""
     monkeypatch.setattr(graphs, "capturable", lambda device: True)
-    monkeypatch.setattr(graphs.Graphed, "_warm_up", lambda self: self.fn())
+    monkeypatch.setattr(graphs.Graphed, "_warm_up", lambda self: self.run())
     monkeypatch.setattr(graphs.Graphed, "_record", _record)
     for attr, name in (("far_sweep_torch", "far_sweep"),
                        ("table_sweep_torch", "table_sweep"),
@@ -271,6 +275,29 @@ def test_replayed_step_counts_one_launch_each(replayed):
                              "near_span": 2}
     assert _same(s1, s1_copy) and s1.mass is st.mass
     assert _same(s2, tsim.step_barnes_hut(tsim.step_barnes_hut(st, tc), tc))
+
+
+def test_dropped_owners_free_their_graphs_without_a_cycle_collection(
+        replayed):
+    """A Simulation's loop and step, with their captured graphs (and so
+    their memory pools), go with its last reference: a graph holds its
+    owner's method weakly, so no reference cycle waits for the
+    collector."""
+    _, tc = _pair(**dict(CASES["hold4"], n=1000, use_pallas=True))
+    st = _tstate(disk_galaxy_jax(tc.n, seed=5, g=tc.g))
+    sim = tsim.Simulation(tc, device="cpu")
+    sim.run_scan(st, 3)
+    sim.step(st)
+    (loop,), (step,) = sim._loops.values(), sim._steps.values()
+    assert loop._rebuild_graph.graph is not None
+    refs = [weakref.ref(x) for x in (sim, loop, loop._rebuild_graph,
+                                     step, step._graph)]
+    del sim, loop, step
+    gc.disable()
+    try:
+        assert [r() for r in refs] == [None] * len(refs)
+    finally:
+        gc.enable()
 
 
 # --- no capture on the CPU or in the sharded loop --------------------------
