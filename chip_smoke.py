@@ -17,8 +17,9 @@ the v5_bench preset (N = 1,000,000, force_tile 512, no_ss) with the
 launch counts zeroed before each and read after it:
   [main]   the per-step rebuild, ``Simulation(cfg).step`` (a captured
            CUDA graph): one warm-up (the capture) and three timed steps,
-           a profile, a per-phase breakdown, live band counts and an
-           accuracy check against a direct sum;
+           a profile (taken after [graphs], below), a per-phase
+           breakdown, live band counts and an accuracy check against a
+           direct sum;
   [runner] the adaptive band-reuse runner, ``Simulation.run_scan``, under
            the kilostep gate, ``tools.prof_kilostep.gate`` (its config is
            v5_bench with check_overflow=False): ``metrics.drift_protocol``
@@ -31,7 +32,8 @@ launch counts zeroed before each and read after it:
            and live pairs, the tile orders' time, the host syncs of a
            32-step run and of inner steps (at most one per rebuild, none
            in an inner step), and
-           profiles of one 32-step chunk and of one inner step;
+           profiles of one 32-step chunk and of one inner step (taken
+           after [graphs]);
            [far ceiling] lines give the far sweep's time at the 1M state,
            on the skinned bands and on rank 0's slab against its 20-op
            bound and its ceiling (pairs x 4 quarter-rate operations over
@@ -47,6 +49,9 @@ launch counts zeroed before each and read after it:
            graphed, graphed, eager; the per-step rebuild
            (Simulation.step against step_barnes_hut) at the 1M IC and at
            100k, bit for bit, with no sync; bh_4m's runner both ways;
+           then [profile]: the spans of [main], [runner] and [graphs] in
+           one torch.profiler session (a second session that traced a
+           graph captured after the first ended has crashed the process);
   [tools]  the runner's evolved state saved through
            ``tools.prof_mkhot`` to chip_scratch/hot1m.npz and loaded back
            bit for bit, then the measuring function of each ported tool
@@ -113,6 +118,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import faulthandler
 import functools
 import gc
 import io as io_module
@@ -524,6 +530,29 @@ def profile_spans(spans, top=6):
     return res
 
 
+# The spans the phases profile, taken in one torch.profiler session after
+# the last of them.  Kineto tears CUPTI down when a session ends, and a
+# later session that traced the replay of a CUDA graph captured after that
+# teardown crashed the process (a segmentation fault in CUDAGraph.replay),
+# so the script opens a single session, once every graph it traces has
+# been captured.
+DEFERRED_SPANS: dict = {}
+
+
+def profile_later(spans):
+    """Queue the labelled callables of `spans` for profile_deferred; each
+    must do the same work when it runs there as it would now."""
+    DEFERRED_SPANS.update(spans)
+
+
+def profile_deferred():
+    """profile_spans over every queued span, in the order queued; the
+    queue is emptied, and what its callables held goes with it."""
+    res = profile_spans(DEFERRED_SPANS)
+    DEFERRED_SPANS.clear()
+    return res
+
+
 def band_report(label, cfg, cells, ss, bands):
     """Band demand per tile (the tools' mean/p999/max) and the overflow
     flags."""
@@ -656,12 +685,11 @@ def runner_phase(base, steps, chunk=32):
     loop.step()
     loop.load(nxt)
     loop.rebuild()
-    profile_spans({
+    profile_later({
         "one inner step (with a far+mid refresh)": loop.step,
         f"one run_scan chunk of {chunk} steps": lambda: sim.run_scan(nxt,
                                                                      chunk),
     })
-    del loop
     return launches, errs, timing, differ, res
 
 
@@ -824,6 +852,11 @@ def ab_times(fns):
     return out
 
 
+def graph_span(kind):
+    """The profile span of a GRAPH_STEPS-step call at the hot state."""
+    return f"{kind} {GRAPH_STEPS}-step call"
+
+
 def graphs_phase(cfg, gate):
     """The kilostep gate's drift protocol run again eagerly (the adaptive
     runner through make_adaptive_runner(..., graphs=False) in 32-step
@@ -935,8 +968,7 @@ def graphs_phase(cfg, gate):
         if kind == "graphed" and bad:
             raise RuntimeError(f"[graphs] graphed steps {bad} sync other "
                                f"than once a rebuild")
-    prof = profile_spans({f"{k} {GRAPH_STEPS}-step call": runner(k)
-                          for k in ("eager", "graphed")})
+    profile_later({graph_span(k): runner(k) for k in ("eager", "graphed")})
     summary = {"kilostep": kilo, "hot": {
         "ms_eager": ms["eager"], "ms_graphed": ms["graphed"],
         "first_ms_graphed": first["graphed"][1], "rebuilds": e_rb,
@@ -945,9 +977,9 @@ def graphs_phase(cfg, gate):
         "built_bit_equal": [built_same, len(built)],
         "syncs_rebuilds_bad": syncs,
         "memory": mem,
-        "profile": {k.split()[0]: v for k, v in prof.items()},
+        "profile": None,            # main fills it from profile_deferred
         "launches_per_graph": per_graph}}
-    del e_loop, g_loop, loops, first, ab, built
+    del e_loop, g_loop, first, ab, built
 
     # the per-step rebuild: Simulation.step against step_barnes_hut
     per_step = {}
@@ -2241,7 +2273,7 @@ def main() -> int:
         raise RuntimeError(f"median force error {med} >= 2%")
     log(f"[main] KE {float(metrics.kinetic_energy(state)):.6e}")
 
-    profile_spans({"one main step": lambda: sim.step(state)})
+    profile_later({"one main step": lambda: sim.step(state)})
     phases, (ps, ms, cells, ss, bands, tables) = phase_breakdown(cfg, state)
     log("[main] phases (ms): " + ", ".join(f"{k} {v:.1f}"
                                            for k, v in phases.items()))
@@ -2250,8 +2282,11 @@ def main() -> int:
     near_pairs_report("kernels main", cfg, bands)
     launches, runner_err, runner_ms, runner_differ, gate = runner_phase(
         cfg, RUNNER_STEPS)
-    gate["sim_cfg"] = gate.pop("sim").cfg    # free its loop's graphs
+    gate["sim_cfg"] = gate.pop("sim").cfg
     graphs_res = graphs_phase(cfg, gate)
+    prof = profile_deferred()
+    graphs_res["hot"]["profile"] = {k: prof[graph_span(k)]
+                                    for k in ("eager", "graphed")}
     launches_tools, (tools_kern, tools_differ), tools_res = tools_phase(
         cfg, gate["state"], gate["drift_steps"], gate["e1"])
 
@@ -2343,4 +2378,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # a crash in native code prints every thread's Python stack
+    faulthandler.enable(all_threads=True)
     sys.exit(main())
