@@ -49,9 +49,23 @@ launch counts zeroed before each and read after it:
            graphed, graphed, eager; the per-step rebuild
            (Simulation.step against step_barnes_hut) at the 1M IC and at
            100k, bit for bit, with no sync; bh_4m's runner both ways;
-           then [profile]: the spans of [main], [runner] and [graphs] in
-           one torch.profiler session (a second session that traced a
-           graph captured after the first ended has crashed the process);
+  [graph paths] the last compiled paths of the JAX package as captured
+           graphs against their eager twins, each in turns eager,
+           graphed, graphed, eager from its IC, bit for bit, with equal
+           launches, no host sync in a later graphed call, ms a step and
+           memory: the direct step at `simple` (N = 4096,
+           Simulation(method="direct").run_scan, 100 steps, against
+           step_direct looped) and the fixed-K cycles at v5_bench with
+           adaptive_rebuild=False (Simulation.run_scan, 40 steps: two
+           16-step cycles and an 8-step remainder, against
+           make_cycle_runner(..., graphs=False); launches against the
+           schedule, per cycle graph, and each cycle's overflow flags);
+           then [profile]: the spans of [main], [runner], [graphs] and
+           [graph paths] in one torch.profiler session (a second session
+           that traced a graph captured after the first ended has
+           crashed the process), with the device kernels by name that a
+           graphed span has beyond its eager twin's, and both spans'
+           memcpy and memset events;
   [tools]  the runner's evolved state saved through
            ``tools.prof_mkhot`` to chip_scratch/hot1m.npz and loaded back
            bit for bit, then the measuring function of each ported tool
@@ -93,7 +107,9 @@ launch counts zeroed before each and read after it:
   [view]   the live viewer at v5 over HTTP on 127.0.0.1: page, JPEG
            frame, stats, a camera drag, then frames/s over 10 s;
   [ensemble] 4 members of bh_100k through models.ensemble's
-           make_ensemble_step, each bit-equal to step_barnes_hut alone;
+           make_ensemble_step: its graph against graphs=False in 8-step
+           calls as [graph paths] does, then one replayed step with no
+           host sync, each member bit-equal to step_barnes_hut alone;
   [shard]  the sharded_4m preset (N = 4,000,000 in 8 slabs) on 8 ranks
            that share the card (parallel/launch.spawn, backend gloo):
            16 steps of make_sharded_adaptive_runner against the
@@ -464,7 +480,8 @@ def profile_spans(spans, top=6):
     work (a kernel, or a whole graph) and the kernels with the most
     device time; then the profile's aten ops with the most host time.
     Returns {label: {"wall_ms", "busy_ms", "busy", "kernels",
-    "host_launches"}}."""
+    "host_launches", "by_name": {kernel name: count}, "copies": {the
+    trace's memcpy and memset events of the span, by kind}}}."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     walls, res = {}, {}
@@ -498,22 +515,33 @@ def profile_spans(spans, top=6):
     launch_calls = [e["ts"] for e in events
                     if e.get("cat") in ("cuda_runtime", "cuda_driver")
                     and "Launch" in e.get("name", "")]
+    copy_events = [e for e in events
+                   if e.get("cat") in ("gpu_memcpy", "gpu_memset")]
+
+    def launched_in(e, lo, hi):
+        return lo <= launched_at.get(e.get("args", {}).get("correlation"),
+                                     e["ts"]) <= hi
+
     for label in spans:
         rng = [e for e in events if e.get("cat") == "user_annotation"
                and e.get("name") == label][0]
         lo, hi = rng["ts"], rng["ts"] + rng["dur"]
-        mine = [e for e in kernels if lo <= launched_at.get(
-            e.get("args", {}).get("correlation"), e["ts"]) <= hi]
+        mine = [e for e in kernels if launched_in(e, lo, hi)]
         busy_ms = sum(e["dur"] for e in mine) / 1e3
         host = sum(lo <= t <= hi for t in launch_calls)
-        res[label] = {"wall_ms": walls[label], "busy_ms": busy_ms,
-                      "busy": busy_ms / walls[label], "kernels": len(mine),
-                      "host_launches": host}
-        by_name = {}
+        by_name, counts = {}, collections.Counter()
         for e in mine:
             name = e["name"].replace("(anonymous namespace)::", "")
             name = name.split("(")[0].split("<")[0].split(" ")[-1][-40:]
             by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3
+            counts[name] += 1
+        copies = collections.Counter(
+            f"{e['cat']} {e['name']}" for e in copy_events
+            if launched_in(e, lo, hi))
+        res[label] = {"wall_ms": walls[label], "busy_ms": busy_ms,
+                      "busy": busy_ms / walls[label], "kernels": len(mine),
+                      "host_launches": host, "by_name": dict(counts),
+                      "copies": dict(copies)}
         heavy = sorted(by_name.items(), key=lambda kv: kv[1],
                        reverse=True)[:top]
         log(f"[profile: {label}] wall {walls[label]:.1f} ms, device busy "
@@ -852,6 +880,21 @@ def ab_times(fns):
     return out
 
 
+def kernel_diff(label, graphed, eager):
+    """{kernel name: graphed's count less eager's} of two profile_spans
+    results of one call's work, where the counts differ; logged with
+    both spans' memcpy and memset events."""
+    names = set(graphed["by_name"]) | set(eager["by_name"])
+    diff = {k: graphed["by_name"].get(k, 0) - eager["by_name"].get(k, 0)
+            for k in sorted(names)}
+    diff = {k: v for k, v in diff.items() if v}
+    log(f"[profile] {label}: device kernels {graphed['kernels']} graphed, "
+        f"{eager['kernels']} eager; graphed less eager by name: {diff}; "
+        f"memcpy/memset events graphed {graphed['copies']}, eager "
+        f"{eager['copies']}")
+    return diff
+
+
 def graph_span(kind):
     """The profile span of a GRAPH_STEPS-step call at the hot state."""
     return f"{kind} {GRAPH_STEPS}-step call"
@@ -1055,6 +1098,128 @@ def graphs_phase(cfg, gate):
     torch.cuda.empty_cache()
     summary.update(per_step=per_step, bh_4m=dict(big, bit_equal=same4))
     return summary
+
+
+# [graph paths]: steps of each timed call of the direct step at `simple`
+# (N = 4096, BASELINE.json config 1) and of the fixed-K cycles at
+# v5_bench with adaptive_rebuild=False (K = 16, R = 8: two cycles and an
+# 8-step remainder)
+DIRECT_STEPS = 100
+CYCLE_STEPS = 40
+
+
+def path_ab(label, fns, steps):
+    """A graphed path (fns["graphed"]) against its eager twin
+    (fns["eager"]), each a call of `steps` steps from one state: the
+    first call of each under memory_of (the graphed one captures), then
+    ab_times' turns eager, graphed, graphed, eager; every result must
+    equal the first eager one bit for bit and every call launch the same
+    force kernels; a later graphed call must make no host sync.  Logs ms
+    a step and returns {"ms_eager", "ms_graphed" (a step), "first_ms",
+    "memory", "launches" (a call), "syncs", "state" (the result)}."""
+    mem, first = {}, {}
+    for kind in ("eager", "graphed"):
+        (_, first[kind]), mem[kind] = memory_of(
+            lambda: timed_ms(fns[kind]))
+    ab = ab_times(fns)
+    want = ab["eager"][0][2]
+    same = all(same_bits(a, b) for calls in ab.values() for c in calls
+               for a, b in zip(c[2], want))
+    launches = [c[1] for calls in ab.values() for c in calls]
+    _, n_sync = count_syncs(fns["graphed"])
+    ms = {k: [c[0] / steps for c in v] for k, v in ab.items()}
+    log(f"[graph paths] {label}, {steps} steps a call, eager/graphed/"
+        f"graphed/eager ms a step: " + " / ".join(
+            f"{x:.3f}" for x in (ms["eager"][0], *ms["graphed"],
+                                 ms["eager"][1]))
+        + f": eager {1e3 / np.mean(ms['eager']):.3f} steps/s, graphed "
+        f"{1e3 / np.mean(ms['graphed']):.3f}; bit-equal {same}; launches a "
+        f"call {launches[0]}; host syncs in a graphed call {n_sync}; first "
+        f"calls {first['eager']:.1f} ms eager, {first['graphed']:.1f} ms "
+        f"graphed (captures); eager: {memory_text(mem['eager'])}; graphed: "
+        f"{memory_text(mem['graphed'])}")
+    if not same or n_sync or any(x != launches[0] for x in launches):
+        raise RuntimeError(f"[graph paths] {label}: bit-equal {same}, "
+                           f"{n_sync} syncs, launches {launches}")
+    return {"ms_eager": ms["eager"], "ms_graphed": ms["graphed"],
+            "first_ms": first, "memory": mem, "launches": launches[0],
+            "syncs": n_sync, "state": want}
+
+
+def graph_paths_phase():
+    """The direct step and the fixed-K cycles, each graphed against its
+    eager twin (direct_path, cycles_path).  Returns a summary."""
+    return {"direct": direct_path(), "cycles": cycles_path()}
+
+
+def direct_path():
+    """The direct step at `simple`: Simulation(method="direct").run_scan
+    against step_direct looped, DIRECT_STEPS steps from the IC through
+    path_ab.  Queues a profile span of one call each way (read in
+    main)."""
+    c = PRESETS["simple"]
+    ic = make_initial_state(c, device=DEVICE)
+    sim = Simulation(c, method="direct", device=DEVICE)
+
+    def eager():
+        st = ic
+        for _ in range(DIRECT_STEPS):
+            st = simulation.step_direct(st, c)
+        return st
+
+    fns = {"eager": eager, "graphed": lambda: sim.run_scan(ic, DIRECT_STEPS)}
+    res = path_ab(f"direct step at simple (n={c.n})", fns, DIRECT_STEPS)
+    check_finite("direct", res.pop("state"))
+    (step,) = sim._steps.values()
+    res["launches_per_graph"] = graph_launches(step._graph)
+    profile_later({f"direct {DIRECT_STEPS}-step call {k}": fns[k]
+                   for k in ("eager", "graphed")})
+    return res
+
+
+def cycles_path():
+    """The fixed-K cycles at v5_bench with adaptive_rebuild=False:
+    Simulation.run_scan against make_cycle_runner(..., graphs=False),
+    CYCLE_STEPS steps from the IC through path_ab; the launches against
+    the schedule, each cycle graph's launches a replay and each cycle's
+    overflow flags.  Queues a profile span of one call each way (read in
+    main)."""
+    c = PRESETS["v5_bench"].replace(adaptive_rebuild=False)
+    k, r = c.rebuild_every, c.hold_farmid
+    n_cycles, rem = divmod(CYCLE_STEPS, k)
+    ic = make_initial_state(c, device=DEVICE)
+    sim = Simulation(c, device=DEVICE)
+
+    def eager():
+        st = simulation.make_cycle_runner(c, n_cycles, k, graphs=False)(ic)
+        return simulation.make_cycle_runner(c, 1, rem, graphs=False)(st)
+
+    fns = {"eager": eager, "graphed": lambda: sim.run_scan(ic, CYCLE_STEPS)}
+    res = path_ab(f"fixed-K cycles at v5_bench (n={c.n}, K={k}, R={r})", fns,
+                  CYCLE_STEPS)
+    check_finite("cycles", res.pop("state"))
+    refreshes = n_cycles * (k // r) + rem // simulation._cycle_hold(c, rem)
+    want = {"far_sweep": refreshes, "table_sweep": refreshes,
+            "near_span": CYCLE_STEPS}
+    if res["launches"] != want:
+        raise RuntimeError(f"[graph paths] cycle launches {res['launches']}, "
+                           f"the schedule's {want}")
+    (loop,) = sim._cycles.values()
+    res["launches_per_graph"] = {f"cycle {n}": graph_launches(g)
+                                 for n, g in loop._cycles.items()}
+    lengths = [k] * n_cycles + [rem]
+    loop.load(ic)
+    res["overflow"] = [dict(zip(simulation.BUILD_FLAGS,
+                                map(bool, loop.cycle(n).tolist())))
+                       for n in lengths]
+    log(f"[graph paths] cycles: force-kernel launches a replay, per graph: "
+        f"{res['launches_per_graph']}; overflow flags, cycle by cycle: "
+        + "; ".join(f"{n} steps: " + " ".join(f"{f} {int(v)}"
+                                              for f, v in fl.items())
+                    for n, fl in zip(lengths, res["overflow"])))
+    profile_later({f"cycles {CYCLE_STEPS}-step call {kind}": fns[kind]
+                   for kind in ("eager", "graphed")})
+    return res
 
 
 # [tools]: the cuts of depth that keep the
@@ -1717,6 +1882,7 @@ SHARD_STEPS = 16
 SHARD_TIMEOUT = 900        # seconds for the whole spawned run
 RUNNER_TOL = {"rtol": 1e-4, "atol": 1e-3}    # tests/test_shard.py's bound
 ENSEMBLE_MEMBERS = 4
+ENSEMBLE_STEPS = 8         # steps of each timed ensemble call
 
 
 def shard_rank(mesh, cfg, n_steps):
@@ -2035,8 +2201,11 @@ def shard_phase():
 
 def ensemble_phase():
     """ENSEMBLE_MEMBERS members of bh_100k (seeds 42, 43, ...) through
-    make_ensemble_step for one step, each member bit-equal to
-    step_barnes_hut on that member alone; returns its launches."""
+    make_ensemble_step: its graph against the eager twin
+    (graphs=False) in ENSEMBLE_STEPS-step calls through path_ab (the
+    first graphed call captures), then one step (one replay) with its
+    launches, no host sync, and each member bit-equal to step_barnes_hut
+    on that member alone; returns its launches and times."""
     from nbody_tpu_torch.models import ensemble
 
     cfg = PRESETS["bh_100k"]
@@ -2044,25 +2213,36 @@ def ensemble_phase():
                                   device=DEVICE)
                for e in range(ENSEMBLE_MEMBERS)]
     batched = ensemble.stack_states(members)
+    step = ensemble.make_ensemble_step(cfg)
+    eager = ensemble.make_ensemble_step(cfg, graphs=False)
+
+    def steps(fn):
+        def run(st=batched):
+            for _ in range(ENSEMBLE_STEPS):
+                st = fn(st)
+            return st
+        return run
+
+    res = path_ab(f"ensemble of {ENSEMBLE_MEMBERS} x bh_100k",
+                  {"eager": steps(eager), "graphed": steps(step)},
+                  ENSEMBLE_STEPS)
+    check_finite("ensemble", res.pop("state"))
     kern.reset_launches()
-    sync()
-    t0 = time.perf_counter()
-    out = ensemble.make_ensemble_step(cfg)(batched)
-    sync()
-    ms = 1e3 * (time.perf_counter() - t0)
+    out, ms = timed_ms(lambda: step(batched))
     launches = launches_since_reset("ensemble")
+    _, n_sync = count_syncs(lambda: step(batched))
     same = []
     for e, member in enumerate(members):
         alone = simulation.step_barnes_hut(member, cfg)
         same.append(all(torch.equal(x[e], y) for x, y in zip(out, alone)))
     log(f"[ensemble] bh_100k x {ENSEMBLE_MEMBERS} members (n={cfg.n} each): "
-        f"one make_ensemble_step {ms:.1f} ms; each member bit-equal to "
-        f"step_barnes_hut alone: {same}")
-    if not all(same):
+        f"one make_ensemble_step (a replay) {ms:.1f} ms, {n_sync} host "
+        f"syncs; each member bit-equal to step_barnes_hut alone: {same}")
+    if not all(same) or n_sync:
         raise RuntimeError(f"[ensemble] members differ from the lone step: "
-                           f"{same}")
+                           f"{same}, or {n_sync} syncs in a replay")
     check_finite("ensemble", out)
-    return {"ms": ms, "launches": launches}
+    return dict(res, ms=ms, launches=launches)
 
 
 # [far edges]: (label, targets, super-super rows S, live count, massless
@@ -2284,9 +2464,27 @@ def main() -> int:
         cfg, RUNNER_STEPS)
     gate["sim_cfg"] = gate.pop("sim").cfg
     graphs_res = graphs_phase(cfg, gate)
+    t0 = time.perf_counter()
+    paths_res = graph_paths_phase()
+    t1 = time.perf_counter()
     prof = profile_deferred()
-    graphs_res["hot"]["profile"] = {k: prof[graph_span(k)]
+    log(f"[time] [graph paths] {t1 - t0:.1f} s, the profile session "
+        f"{time.perf_counter() - t1:.1f} s")
+    brief = {label: {k: v for k, v in p.items() if k != "by_name"}
+             for label, p in prof.items()}
+    graphs_res["hot"]["profile"] = {k: brief[graph_span(k)]
                                     for k in ("eager", "graphed")}
+    graphs_res["hot"]["kernels_graphed_less_eager"] = kernel_diff(
+        "the hot call", prof[graph_span("graphed")],
+        prof[graph_span("eager")])
+    for path, steps in (("direct", DIRECT_STEPS), ("cycles", CYCLE_STEPS)):
+        spans = {k: prof[f"{path} {steps}-step call {k}"]
+                 for k in ("eager", "graphed")}
+        paths_res[path]["profile"] = {k: {f: v for f, v in p.items()
+                                          if f != "by_name"}
+                                      for k, p in spans.items()}
+        paths_res[path]["kernels_graphed_less_eager"] = kernel_diff(
+            f"the {path} call", spans["graphed"], spans["eager"])
     launches_tools, (tools_kern, tools_differ), tools_res = tools_phase(
         cfg, gate["state"], gate["drift_steps"], gate["e1"])
 
@@ -2317,7 +2515,10 @@ def main() -> int:
                 g: d[k] for g, d in dict(
                     gate["launches_per_graph"],
                     step=graphs_res["per_step"]["1M IC"][
-                        "launches_per_graph"]).items() if d is not None},
+                        "launches_per_graph"],
+                    **paths_res["cycles"]["launches_per_graph"]).items()
+                if d is not None},
+            "launches_cycles": paths_res["cycles"]["launches"][k],
         })
         log(f"[kernels main] {k}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
             f"bound {bnd[k][0]:.3f} ms ({bnd[k][1]}, "
@@ -2346,7 +2547,9 @@ def main() -> int:
     vcfg, vstate, render_res = render_phase()
     view_res = view_phase(vcfg, vstate)
     del vstate
+    t0 = time.perf_counter()
     ens_res = ensemble_phase()
+    log(f"[time] [ensemble] {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     shard_rows, shard_res = shard_phase()
     bench_res = bench_phase(gate["drift"])
@@ -2359,6 +2562,8 @@ def main() -> int:
                    launches_render=render_res["launches"][k],
                    launches_view=view_res["launches"][k],
                    launches_ensemble=ens_res["launches"][k])
+        # the ensemble's one graph steps every member: a step's launches
+        row["launches_per_graph"]["ensemble"] = ens_res["launches"][k]
     rows += shard_rows
     log("[slice] " + json.dumps({
         "reference": ref,
@@ -2366,8 +2571,9 @@ def main() -> int:
                 if not k.startswith("launches")},
         "render_ms": {m: render_res[f"{m}_ms"] for m in RENDER_BOUNDS},
         "view": {k: v for k, v in view_res.items() if k != "launches"},
-        "ensemble_ms": ens_res["ms"], "shard": shard_res,
-        "tools": tools_res, "bench": bench_res, "graphs": graphs_res}))
+        "ensemble": {k: v for k, v in ens_res.items() if k != "launches"},
+        "shard": shard_res, "tools": tools_res, "bench": bench_res,
+        "graphs": graphs_res, "graph_paths": paths_res}))
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -20,12 +20,13 @@ reuses the structure for exactly its validity horizon.  Either may hold
 the smooth far+mid component for R = cfg.hold_farmid steps (r-RESPA).
 The design history is in nbody_tpu/models/simulation.py.
 
-On CUDA the adaptive runner's rebuild and inner steps, and the per-step
-rebuild of `Simulation.step`, run as captured CUDA graphs
-(utils/graphs.Graphed) over buffers they own: the counterpart of the
-JAX package's one jitted program, with no per-kernel launch from the
-host.  The host keeps the schedule as integers and replays the graph
-each rebuild or step needs.
+On CUDA the adaptive runner's rebuild and inner steps, each fixed-K
+cycle, and the per-step rebuild and the direct step of
+`Simulation.step` run as captured CUDA graphs (utils/graphs.Graphed)
+over buffers they own: the counterpart of the JAX package's one jitted
+program, with no per-kernel launch from the host.  The host keeps the
+schedule as integers and replays the graph each rebuild, cycle or step
+needs.
 """
 
 from __future__ import annotations
@@ -254,7 +255,35 @@ def _graphed(cfg: SimConfig, graphs: bool) -> bool:
     return graphs and cfg.use_pallas
 
 
-class _AdaptiveLoop:
+class _PaddedLoop:
+    """The padded fields of _pad_cycle_state (pos, vel, mass, acc, orig)
+    as buffers a loop owns, with the body count `n` and the masses
+    `mass0` of the state they came from."""
+
+    def _own(self, pos, vel, mass, acc, orig) -> None:
+        self.pos, self.vel, self.mass, self.acc, self.orig = (
+            x.clone() for x in (pos, vel, mass, acc, orig))
+
+    def _load(self, state: ParticleState) -> None:
+        """`state`'s padded fields into the buffers; its padded row count
+        must be the loop's."""
+        fields = _pad_cycle_state(state, self.cfg.force_tile)
+        if fields[0].shape != self.pos.shape:
+            raise ValueError(f"{state.n} bodies pad to {fields[0].shape[0]} "
+                             f"rows, the loop has {self.pos.shape[0]}")
+        self._store(*fields)
+
+    def _store(self, pos, vel, mass, acc, orig) -> None:
+        for buf, x in zip((self.pos, self.vel, self.mass, self.acc,
+                           self.orig), (pos, vel, mass, acc, orig)):
+            buf.copy_(x)
+
+    def snapshot(self) -> ParticleState:
+        return _unpad(self.pos, self.vel, self.acc, self.orig, self.n,
+                      self.mass0)
+
+
+class _AdaptiveLoop(_PaddedLoop):
     """The adaptive schedule as a host loop, one `step()` per step.
 
     A rebuild happens when the current structure's validity horizon is
@@ -306,8 +335,7 @@ class _AdaptiveLoop:
         self.cfg = cfg
         self.r = max(1, cfg.hold_farmid)
         self.span = cfg.farmid_span_rebuilds
-        self.pos, self.vel, self.mass, self.acc, self.orig = (
-            x.clone() for x in (pos, vel, mass, acc, orig))
+        self._own(pos, vel, mass, acc, orig)
         dev = self.pos.device
         self.afm = torch.zeros_like(self.pos)
         self.k_env = torch.empty((), dtype=torch.int64, device=dev)
@@ -344,17 +372,8 @@ class _AdaptiveLoop:
         loop's: its fields into the buffers, and k_env, the held far+mid
         and the host counters as a new loop has them, so that two runs
         from one state are the same run."""
-        fields = _pad_cycle_state(state, self.cfg.force_tile)
-        if fields[0].shape != self.pos.shape:
-            raise ValueError(f"{state.n} bodies pad to {fields[0].shape[0]} "
-                             f"rows, the loop has {self.pos.shape[0]}")
-        self._store(*fields)
+        self._load(state)
         self._reset(state.n, state.mass)
-
-    def _store(self, pos, vel, mass, acc, orig) -> None:
-        for buf, x in zip((self.pos, self.vel, self.mass, self.acc,
-                           self.orig), (pos, vel, mass, acc, orig)):
-            buf.copy_(x)
 
     def _rebuild_body(self):
         """The rebuild over the buffers: the fields (and the held far+mid
@@ -436,24 +455,28 @@ class _AdaptiveLoop:
         self.left -= 1
         self.j += 1
 
-    def snapshot(self) -> ParticleState:
-        return _unpad(self.pos, self.vel, self.acc, self.orig, self.n,
-                      self.mass0)
+
+def _loop_for(loops: dict, kind, cfg: SimConfig, state: ParticleState,
+              graphs: bool):
+    """The loop of class `kind` in `loops` for the state's padded row
+    count and device, loaded with `state`; made on first use, its graphs
+    captured as it meets them."""
+    rows = -(-state.n // cfg.force_tile) * cfg.force_tile
+    key = (cfg, rows, state.device)
+    loop = loops.get(key)
+    if loop is None:
+        loop = loops[key] = kind(cfg, state, graphs)
+    else:
+        loop.load(state)
+    return loop
 
 
 def _run_adaptive(loops: dict, cfg: SimConfig, state: ParticleState,
                   n_steps: int, graphs: bool = True):
     """n_steps of the adaptive schedule from `state`, starting with a
-    rebuild, on the loop of `loops` for the state's padded row count and
-    device (made on first use, its graphs captured as it meets them):
-    (the state after, the number of rebuilds)."""
-    rows = -(-state.n // cfg.force_tile) * cfg.force_tile
-    key = (cfg, rows, state.device)
-    loop = loops.get(key)
-    if loop is None:
-        loop = loops[key] = _AdaptiveLoop(cfg, state, graphs)
-    else:
-        loop.load(state)
+    rebuild, on the adaptive loop of `loops` (_loop_for): (the state
+    after, the number of rebuilds)."""
+    loop = _loop_for(loops, _AdaptiveLoop, cfg, state, graphs)
     for _ in range(n_steps):
         loop.step()
     return loop.snapshot(), loop.n_rebuilds
@@ -520,37 +543,119 @@ class AdaptiveStepper:
         return self._loop.snapshot()
 
 
-def make_cycle_runner(cfg: SimConfig, n_cycles: int, k: int):
+# the seven overflow flags of a band build, in the order of the tensor
+# _CycleLoop.cycle returns
+BUILD_FLAGS = ("ss", "sup", "mid", "cmid", "near", "cells", "g2")
+
+
+def _cycle_hold(cfg: SimConfig, k: int) -> int:
+    """The far+mid hold of a k-step cycle: cfg.hold_farmid, or 1 when it
+    does not divide k."""
+    r = max(1, cfg.hold_farmid)
+    return 1 if k % r else r
+
+
+class _CycleLoop(_PaddedLoop):
+    """Fixed-K cycles over buffers the loop owns (_PaddedLoop), one
+    `cycle(k)` a cycle.
+
+    A cycle of k steps re-sorts the rows by Morton code, writes the
+    permuted fields back into the buffers, builds the bands with skins
+    from the uncapped k-step drift bound, and runs k // r sub-cycles of a
+    far+mid evaluation followed by r steps of the exact near band and
+    the integration (r = _cycle_hold).  On CUDA each cycle length is one
+    captured graph (utils/graphs.Graphed), replayed for every cycle of
+    that length, unless `graphs` is False or the config has no hand
+    kernels (_graphed); the graphs keep their results in the buffers and
+    share one pool.  `load` starts the loop again from another state of
+    the same padded row count, reusing the graphs."""
+
+    def __init__(self, cfg: SimConfig, state: ParticleState,
+                 graphs: bool = True):
+        self.cfg = cfg
+        self.graphs = _graphed(cfg, graphs)
+        self._own(*_pad_cycle_state(state, cfg.force_tile))
+        self.n, self.mass0 = state.n, state.mass
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.graphs and capturable(self.pos.device) else None)
+        self._cycles: dict = {}         # k -> Graphed
+
+    def load(self, state: ParticleState) -> None:
+        """Start again from `state`, whose padded row count must be the
+        loop's."""
+        self._load(state)
+        self.n, self.mass0 = state.n, state.mass
+
+    def _cycle(self, k: int) -> torch.Tensor:
+        """One k-step cycle over the buffers; returns the build's
+        overflow flags (a device bool [7], BUILD_FLAGS).  k, and with it
+        the drift bound's horizon, the hold r and the prediction time
+        0.5 (r - 1) dt, is constant for each graph, so baking them in at
+        capture is right."""
+        cfg = self.cfg
+        r = _cycle_hold(cfg, k)
+        codes_s, perm, _, _ = sort_by_morton(self.pos, cfg)
+        # the gathers allocate: copy them back into the buffers
+        self._store(*(x[perm] for x in (self.pos, self.vel, self.mass,
+                                         self.acc, self.orig)))
+        drift = drift_bound(_norms(self.vel), _norms(self.acc), cfg, k)
+        cells, supers, bands, tables = forces.build_bands(
+            self.pos, self.mass, codes_s, cfg, drift=drift)
+        tau = 0.5 * (r - 1) * cfg.dt
+        for _ in range(k // r):
+            afm = forces.apply_farmid(
+                hold_predict_pos(self.pos, self.vel, self.acc, tau, cfg),
+                supers, tables, cfg)
+            for _ in range(r):
+                acc = afm + forces.apply_near(self.pos, self.pos, self.mass,
+                                              bands, cfg)
+                st = integ.integrate(ParticleState(pos=self.pos, vel=self.vel,
+                                                   mass=self.mass, acc=acc),
+                                     acc, cfg)
+                for buf, x in ((self.pos, st.pos), (self.vel, st.vel),
+                               (self.acc, acc)):
+                    buf.copy_(x)
+        return torch.stack([getattr(bands, f"{f}_overflow")
+                            for f in BUILD_FLAGS[:5]]
+                           + [cells.overflow, cells.overflow_g2])
+
+    def cycle(self, k: int) -> torch.Tensor:
+        """One cycle of k steps, its graph captured on first use; returns
+        the build's overflow flags, which the next replay of the same
+        graph overwrites."""
+        graph = self._cycles.get(k)
+        if graph is None:
+            graph = self._cycles[k] = Graphed(
+                self._cycle, (self.pos, self.vel, self.mass, self.acc,
+                              self.orig), self.pos.device, self.graphs,
+                self._pool, (k,))
+        return graph()
+
+
+def _run_cycles(loops: dict, cfg: SimConfig, state: ParticleState,
+                n_cycles: int, k: int, graphs: bool = True) -> ParticleState:
+    """n_cycles k-step cycles from `state` on the cycle loop of `loops`
+    (_loop_for): the state after."""
+    loop = _loop_for(loops, _CycleLoop, cfg, state, graphs)
+    for _ in range(n_cycles):
+        loop.cycle(k)
+    return loop.snapshot()
+
+
+def make_cycle_runner(cfg: SimConfig, n_cycles: int, k: int,
+                      graphs: bool = True):
     """A function advancing a state by n_cycles * k steps with one band
     rebuild per cycle, skins from the uncapped k-step drift bound.  With
     R = cfg.hold_farmid > 1 dividing k, far+mid is evaluated once per
     R-step sub-cycle at its start positions (per cfg.hold_predict) and
     only the exact near band runs every step; otherwise every step
-    evaluates all three bands."""
-    r = max(1, cfg.hold_farmid)
-    if k % r:
-        r = 1                 # the hold must divide the cycle
+    evaluates all three bands.  On CUDA a cycle runs as a captured graph
+    (unless `graphs` is False), which the function keeps for each padded
+    row count it meets and replays in its later calls (_CycleLoop)."""
+    loops: dict = {}
 
     def run(state: ParticleState) -> ParticleState:
-        pos, vel, mass, acc, orig = _pad_cycle_state(state, cfg.force_tile)
-        for _ in range(n_cycles):
-            codes_s, perm, _, _ = sort_by_morton(pos, cfg)
-            pos, vel, mass, acc, orig = (pos[perm], vel[perm], mass[perm],
-                                         acc[perm], orig[perm])
-            drift = drift_bound(_norms(vel), _norms(acc), cfg, k)
-            _, supers, bands, tables = forces.build_bands(
-                pos, mass, codes_s, cfg, drift=drift)
-            for _ in range(k // r):
-                p_mid = hold_predict_pos(pos, vel, acc, 0.5 * (r - 1) * cfg.dt,
-                                         cfg)
-                afm = forces.apply_farmid(p_mid, supers, tables, cfg)
-                for _ in range(r):
-                    acc = afm + forces.apply_near(pos, pos, mass, bands, cfg)
-                    st = integ.integrate(ParticleState(pos=pos, vel=vel,
-                                                       mass=mass, acc=acc),
-                                         acc, cfg)
-                    pos, vel = st.pos, st.vel
-        return _unpad(pos, vel, acc, orig, state.n, state.mass)
+        return _run_cycles(loops, cfg, state, n_cycles, k, graphs)
 
     return run
 
@@ -561,23 +666,26 @@ def make_cycle_runner(cfg: SimConfig, n_cycles: int, k: int):
 
 
 class _GraphedStep:
-    """step_barnes_hut over buffers of n bodies: on CUDA, with the hand
-    kernels (_graphed), one captured graph (utils/graphs.Graphed) that
-    reads nothing back.  A call copies the state in and returns copies
-    of the results, which the next replay overwrites in the graph's
-    outputs."""
+    """`step_fn(state, cfg)` (step_barnes_hut, step_direct, or an
+    ensemble's step over [E, ...] fields) over buffers of the state's
+    shape: on CUDA, with the hand kernels (_graphed) and unless `graphs`
+    is False, one captured graph (utils/graphs.Graphed) that reads
+    nothing back.  The step reads no acceleration.  A call copies the
+    state in and returns copies of the results, which the next replay
+    overwrites in the graph's outputs."""
 
-    def __init__(self, cfg: SimConfig, state: ParticleState):
+    def __init__(self, cfg: SimConfig, state: ParticleState, step_fn,
+                 graphs: bool = True):
         self.cfg = cfg
+        self._step_fn = step_fn
         self.pos, self.vel, self.mass = (x.clone() for x in state[:3])
         self._graph = Graphed(self._body, (), state.device,
-                              _graphed(cfg, True))
+                              _graphed(cfg, graphs))
 
     def _body(self) -> ParticleState:
-        # the step reads no acceleration
-        return step_barnes_hut(ParticleState(pos=self.pos, vel=self.vel,
-                                             mass=self.mass, acc=None),
-                               self.cfg)
+        return self._step_fn(ParticleState(pos=self.pos, vel=self.vel,
+                                           mass=self.mass, acc=None),
+                             self.cfg)
 
     def __call__(self, state: ParticleState) -> ParticleState:
         for buf, x in zip((self.pos, self.vel, self.mass), state[:3]):
@@ -598,13 +706,14 @@ class Simulation:
     over every `run_scan` call; `walk_stats` sums the rope walk's
     lockstep iterations and host reads over every reference step.
 
-    On CUDA the per-step rebuild and the adaptive runner run as captured
-    CUDA graphs (utils/graphs.Graphed), the counterpart of the JAX
-    package's jit caches: the Simulation keeps one per-step graph for
-    each body count and one adaptive loop for each padded row count it
-    meets, and replays them in every later call, whatever its length.
-    The direct step, the rope-walk oracle, the fixed-K cycles and the
-    plain sweeps (cfg.use_pallas=False) run eagerly."""
+    On CUDA the per-step rebuild, the direct step, the adaptive runner
+    and the fixed-K cycles run as captured CUDA graphs
+    (utils/graphs.Graphed), the counterpart of the JAX package's jit
+    caches: the Simulation keeps one step graph for each body count, and
+    one adaptive loop and one cycle loop (a graph for each cycle length)
+    for each padded row count it meets, and replays them in every later
+    call, whatever its length.  The rope-walk oracle (host reads by
+    design) and the plain sweeps (cfg.use_pallas=False) run eagerly."""
 
     def __init__(self, cfg: SimConfig, method: str = "barnes_hut",
                  device=None):
@@ -615,8 +724,10 @@ class Simulation:
         self.device = default_device(device)
         self.n_rebuilds = 0
         self.walk_stats = {"iterations": 0, "host_reads": 0}
+        # a Simulation has one method, so the step's key leaves it out
         self._steps: dict = {}      # (cfg, n, device) -> _GraphedStep
         self._loops: dict = {}      # (cfg, rows, device) -> _AdaptiveLoop
+        self._cycles: dict = {}     # (cfg, rows, device) -> _CycleLoop
         self._overflow_checked = method != "barnes_hut" or not cfg.check_overflow
 
     def init_state(self) -> ParticleState:
@@ -630,15 +741,15 @@ class Simulation:
                              f"simulation on {self.device}")
 
     def _step(self, state: ParticleState) -> ParticleState:
-        if self.method == "direct":
-            return step_direct(state, self.cfg)
         if self.method == "barnes_hut_reference":
             return step_barnes_hut(state, self.cfg, "reference",
                                    self.walk_stats)
         key = (self.cfg, state.n, state.device)
         step = self._steps.get(key)
         if step is None:
-            step = self._steps[key] = _GraphedStep(self.cfg, state)
+            step = self._steps[key] = _GraphedStep(
+                self.cfg, state,
+                step_direct if self.method == "direct" else step_barnes_hut)
         return step(state)
 
     def step(self, state: ParticleState) -> ParticleState:
@@ -684,9 +795,9 @@ class Simulation:
             return state
         n_cycles, rem = divmod(n_steps, k)
         if n_cycles:
-            state = make_cycle_runner(self.cfg, n_cycles, k)(state)
+            state = _run_cycles(self._cycles, self.cfg, state, n_cycles, k)
         if rem:
-            state = make_cycle_runner(self.cfg, 1, rem)(state)
+            state = _run_cycles(self._cycles, self.cfg, state, 1, rem)
         return state
 
     def make_stepper(self, state: ParticleState) -> Optional[AdaptiveStepper]:

@@ -5,8 +5,10 @@ nbody_tpu, run_scan through a reused loop against fresh Simulations and
 nbody_tpu's runner, the cache at two body counts, the launch counts
 under replay (a CPU stand-in for a CUDA graph that replays by running
 the function again) as chip_smoke.py's runner check and the bench's
-far-sweep counter read them, and that neither a CPU run nor the sharded
-loop enters a capture."""
+far-sweep counter read them, and that no CPU run, plain sweep, rope
+walk or sharded loop enters a capture (the CPU stand-in is in
+torch_graph_standin.py; the direct step, the fixed-K cycles and the
+ensemble are tested in test_torch_graphs_paths.py)."""
 
 import dataclasses
 import gc
@@ -26,12 +28,14 @@ from nbody_tpu.models import simulation as jsim
 
 from nbody_tpu_torch import bench
 from nbody_tpu_torch.convert import config_from_dict, state_from_numpy
+from nbody_tpu_torch.models import ensemble as tens
 from nbody_tpu_torch.models import simulation as tsim
-from nbody_tpu_torch.ops import forces as tforces
 from nbody_tpu_torch.ops.cuda import forces as kern
 from nbody_tpu_torch.ops.cuda import launch
 from nbody_tpu_torch.parallel import comm, shard
 from nbody_tpu_torch.utils import graphs, metrics
+
+from torch_graph_standin import _never, replayed  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 
@@ -171,57 +175,6 @@ def test_uncounted_takes_a_block_out_and_add_replays_it():
         launch._COUNTERS.remove(counts)
 
 
-def _copy_into(dst, src):
-    if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
-    elif isinstance(dst, tuple):
-        for d, s in zip(dst, src):
-            _copy_into(d, s)
-
-
-class _Replay:
-    """A CUDA graph's CPU stand-in: a replay runs the function again, its
-    launches uncounted (the graph's record adds them), and writes its
-    outputs into the captured ones in place.  It holds its Graphed
-    weakly, as a CUDA graph holds nothing of it."""
-
-    def __init__(self, g):
-        self.g = weakref.ref(g)
-
-    def replay(self):
-        g = self.g()
-        with launch.uncounted():
-            out = g.run()
-        _copy_into(g.out, out)
-
-
-def _record(self):
-    """A capture's CPU stand-in: the function run once and its buffers put
-    back, since a capture runs nothing."""
-    saved = [b.clone() for b in self.buffers]
-    out = self.run()
-    for b, s in zip(self.buffers, saved):
-        b.copy_(s)
-    return _Replay(self), out
-
-
-@pytest.fixture
-def replayed(monkeypatch):
-    """Every Graphed captures through the stand-ins, and the plain sweeps
-    count a launch per call as their kernels' wrappers do."""
-    monkeypatch.setattr(graphs, "capturable", lambda device: True)
-    monkeypatch.setattr(graphs.Graphed, "_warm_up", lambda self: self.run())
-    monkeypatch.setattr(graphs.Graphed, "_record", _record)
-    for attr, name in (("far_sweep_torch", "far_sweep"),
-                       ("table_sweep_torch", "table_sweep"),
-                       ("near_correction_torch", "near_span")):
-        def counted(*a, _plain=getattr(tforces, attr), _name=name, **kw):
-            kern.LAUNCHES[_name] += 1
-            return _plain(*a, **kw)
-
-        monkeypatch.setattr(tforces, attr, counted)
-
-
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_replayed_runner_counts_true_launches(replayed, case):
     """Through the stand-in graphs the runner gives the eager runner's
@@ -303,13 +256,11 @@ def test_dropped_owners_free_their_graphs_without_a_cycle_collection(
 # --- no capture on the CPU or in the sharded loop --------------------------
 
 
-def _never(self):
-    raise AssertionError("entered a capture")
-
-
 def test_cpu_runs_never_capture(monkeypatch):
-    """run_scan (adaptive and per step), step, the stepper and the drift
-    protocol run on the CPU without entering a capture."""
+    """run_scan (adaptive, per step, direct and fixed-K cycles with a
+    remainder), step, the stepper, the drift protocol and the ensemble
+    step run on the CPU without entering a capture, with the plain
+    sweeps and with the hand kernels' wrappers (plain on CPU tensors)."""
     monkeypatch.setattr(graphs.Graphed, "_warm_up", _never)
     monkeypatch.setattr(graphs.Graphed, "_record", _never)
     _, tc = _pair(**CASES["span_age1_no_ss"])
@@ -321,26 +272,45 @@ def test_cpu_runs_never_capture(monkeypatch):
     metrics.drift_protocol(sim, st, n_steps=3, chunk=2)
     k1 = tsim.Simulation(tc.replace(rebuild_every=1), device="cpu")
     k1.run_scan(k1.step(st), 2)
+    for c in (tc, tc.replace(use_pallas=True)):
+        direct = tsim.Simulation(c, method="direct", device="cpu")
+        direct.run_scan(direct.step(st), 2)
+        tsim.Simulation(c.replace(adaptive_rebuild=False, hold_farmid=4),
+                        device="cpu").run_scan(st, 10)
+        for method in ("barnes_hut", "direct"):
+            tens.make_ensemble_step(c, method)(tens.stack_states([st, st]))
 
 
 def test_sharded_loop_and_plain_sweeps_never_capture(monkeypatch, tmp_path):
-    """Where every device captured, the single-process loop and step
-    would enter a capture with the hand kernels (their wrappers run the
-    plain sweeps on CPU tensors), but not with the plain sweeps, which
-    read back (use_pallas=False, the command line's --no-pallas); the
-    sharded loop (on a 1-rank gloo mesh here) stays eager and runs the
-    single process's schedule."""
+    """Where every device captured, the single-process loop, the step,
+    the direct step, the fixed-K cycles and the ensemble step would enter
+    a capture with the hand kernels (their wrappers run the plain sweeps
+    on CPU tensors), but not with the plain sweeps, which read back
+    (use_pallas=False, the command line's --no-pallas); the rope-walk
+    oracle, which reads back by design, never does; the sharded loop (on
+    a 1-rank gloo mesh here) stays eager and runs the single process's
+    schedule."""
     _, tc = _pair(**dict(CASES["hold4"], n=1024, use_pallas=True))
     st = _tstate(disk_galaxy_jax(tc.n, seed=4, g=tc.g))
     want, want_rb = tsim.make_adaptive_runner(tc, 5, return_stats=True)(st)
     monkeypatch.setattr(graphs, "capturable", lambda device: True)
     monkeypatch.setattr(graphs.Graphed, "_warm_up", _never)
     monkeypatch.setattr(graphs.Graphed, "_record", _never)
+    pair = tens.stack_states([st, st])
     for fn in (lambda c: tsim.make_adaptive_runner(c, 5)(st),
-               lambda c: tsim.Simulation(c, device="cpu").step(st)):
+               lambda c: tsim.Simulation(c, device="cpu").step(st),
+               lambda c: tsim.Simulation(c, method="direct",
+                                         device="cpu").step(st),
+               lambda c: tsim.make_cycle_runner(c, 1, 4)(st),
+               lambda c: tsim.Simulation(c.replace(adaptive_rebuild=False),
+                                         device="cpu").run_scan(st, 6),
+               lambda c: tens.make_ensemble_step(c)(pair),
+               lambda c: tens.make_ensemble_step(c, "direct")(pair)):
         with pytest.raises(AssertionError, match="entered a capture"):
             fn(tc)
         fn(tc.replace(use_pallas=False))
+    oracle = tsim.Simulation(tc, method="barnes_hut_reference", device="cpu")
+    oracle.run_scan(oracle.step(st), 1)
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             rank=0, world_size=1)
     try:
