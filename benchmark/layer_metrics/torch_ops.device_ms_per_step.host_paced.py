@@ -1,0 +1,13 @@
+"""torch_ops.device_ms_per_step.host_paced: torch_ops.device_ms_per_step
+(its reader) in the cells whose steps the host launches at about the
+rate the card runs them, which report steps_per_s.host_paced. A bound
+belongs to a metric's name, and a per-layer metric's `moves` has to be
+reported in every cell it lists, so these cells need an entry of their
+own."""
+
+from pathlib import Path
+
+from benchmark.harness import load_module
+
+read = load_module(Path(__file__).with_name("torch_ops.device_ms_per_step.py"),
+                   "benchmark_metric_torch_ops_device_ms_per_step").read
