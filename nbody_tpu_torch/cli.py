@@ -72,6 +72,15 @@ def _report_launches(device) -> None:
               file=sys.stderr)
 
 
+def _report_counters(sim) -> None:
+    """The adaptive runner's rebuilds, split into those that began a run_scan
+    call and those that ran out a validity horizon, and the band builds'
+    overflow counts (Simulation.counters), on stderr."""
+    c = sim.counters()
+    c["horizon_rebuilds"] = c["rebuilds"] - c["start_rebuilds"]
+    print(f"counters: {json.dumps(c)}", file=sys.stderr)
+
+
 def cmd_run(args) -> int:
     from nbody_tpu_torch.utils import io, metrics
     from nbody_tpu_torch.utils.profiling import _sync
@@ -114,6 +123,7 @@ def cmd_run(args) -> int:
         io.save_checkpoint(args.checkpoint, state, args.steps)
         print(f"wrote {args.checkpoint}")
     _report_launches(sim.device)
+    _report_counters(sim)
     return 0
 
 

@@ -62,7 +62,8 @@ def make_ensemble_step(cfg: SimConfig, method: str = "barnes_hut",
         key = (*batched.pos.shape[:2], batched.pos.device)
         owner = owners.get(key)
         if owner is None:
-            owner = owners[key] = _GraphedStep(cfg, batched, members, graphs)
+            owner = owners[key] = _GraphedStep(cfg, batched, members,
+                                                 "ensemble", graphs)
         return owner(batched)
 
     return step

@@ -42,6 +42,7 @@ from nbody_tpu_torch.ops import bbox, morton, forces, integrate as integ
 from nbody_tpu_torch.ops.cells import build_source_cells
 from nbody_tpu_torch.ops.tree import build_tree
 from nbody_tpu_torch.utils.graphs import Graphed, capturable
+from nbody_tpu_torch.utils.profiling import span
 
 
 def sort_by_morton(pos: torch.Tensor, cfg: SimConfig):
@@ -207,10 +208,33 @@ def k_next_of(k_env: torch.Tensor, s_valid: torch.Tensor,
                        torch.clamp(2 * s_valid, 1, cfg.rebuild_every))
 
 
+# the seven overflow flags of a band build, in the order of build_flags:
+# the five band lists', the adaptive cells' and the grandchild segments'
+BUILD_FLAGS = ("ss", "sup", "mid", "cmid", "near", "cells", "g2")
+
+
+def _band_flags(bands) -> list:
+    return [getattr(bands, f"{f}_overflow") for f in BUILD_FLAGS[:5]]
+
+
 def bands_overflowed(bands) -> torch.Tensor:
     """Any band list of `bands` past its cap (a device bool)."""
-    return (bands.ss_overflow | bands.sup_overflow | bands.mid_overflow
-            | bands.cmid_overflow | bands.near_overflow)
+    return torch.stack(_band_flags(bands)).any()
+
+
+def build_flags(cells, bands) -> torch.Tensor:
+    """The overflow flags of one band build (build_bands' cells and
+    bands): a device bool [7], BUILD_FLAGS."""
+    return torch.stack(_band_flags(bands) + [cells.overflow,
+                                             cells.overflow_g2])
+
+
+def _count_overflows(counts: torch.Tensor, flags: torch.Tensor) -> None:
+    """Add one build's flags (build_flags), and whether any is set, to a
+    loop's device int64 [8] counts in place: inside a captured graph, so
+    that every replay counts with no host read."""
+    counts[:-1].add_(flags)
+    counts[-1:].add_(flags.any())
 
 
 def _adaptive_rebuild_fn(cfg: SimConfig):
@@ -279,8 +303,9 @@ class _PaddedLoop:
             buf.copy_(x)
 
     def snapshot(self) -> ParticleState:
-        return _unpad(self.pos, self.vel, self.acc, self.orig, self.n,
-                      self.mass0)
+        with span("nbody.loop.snapshot"):
+            return _unpad(self.pos, self.vel, self.acc, self.orig, self.n,
+                          self.mass0)
 
 
 class _AdaptiveLoop(_PaddedLoop):
@@ -316,9 +341,16 @@ class _AdaptiveLoop(_PaddedLoop):
     again from another state of the same padded row count, reusing the
     graphs.
 
+    Counters that `load` keeps: `builds` (rebuilds), `start_rebuilds`
+    (the first rebuild after each load or construction; the others ran
+    out a validity horizon) and `overflows`, a device int64 [8] that the
+    rebuild graph adds each build's BUILD_FLAGS and whether any is set
+    to.  `n_rebuilds` counts the rebuilds since the last load.
+
     The schedule is shared with the multi-device loop
     (parallel/shard.py), which overrides the rebuild (`_build`), the
-    moment refresh, the near band and the snapshot, and runs eagerly."""
+    moment refresh, the near band and the snapshot, and runs eagerly;
+    its rebuild counts no overflows."""
 
     def __init__(self, cfg: SimConfig, state: ParticleState,
                  graphs: bool = True):
@@ -326,7 +358,8 @@ class _AdaptiveLoop(_PaddedLoop):
         self._start(cfg, state.n, state.mass,
                     *_pad_cycle_state(state, cfg.force_tile), graphs=graphs)
         self._rebuild_fn = _adaptive_rebuild_fn(cfg)
-        self._rebuild_graph = self._graphed(self._rebuild_body, graphs)
+        self._rebuild_graph = self._graphed(self._rebuild_body, "rebuild",
+                                            graphs)
 
     def _start(self, cfg: SimConfig, n: int, mass0, pos, vel, mass, acc,
                orig, graphs: bool) -> None:
@@ -340,19 +373,24 @@ class _AdaptiveLoop(_PaddedLoop):
         self.afm = torch.zeros_like(self.pos)
         self.k_env = torch.empty((), dtype=torch.int64, device=dev)
         self.tau = torch.zeros((), dtype=torch.float64, device=dev)
+        self.overflows = torch.zeros(len(BUILD_FLAGS) + 1,
+                                     dtype=torch.int64, device=dev)
+        self.builds = self.start_rebuilds = 0
         # the loop's graphs replay one at a time on one stream and keep
         # their results in the buffers or in the rebuild's live outputs,
         # so they share one memory pool
         self._pool = (torch.cuda.graph_pool_handle()
                       if graphs and capturable(dev) else None)
-        self._steps = {kind: self._graphed(self._inner, graphs, (kind,))
-                       for kind in (None, "farmid", "refreshed")}
+        self._steps = {kind: self._graphed(
+            self._inner, "inner" if kind is None else f"inner.{kind}",
+            graphs, (kind,)) for kind in (None, "farmid", "refreshed")}
         self._reset(n, mass0)
 
-    def _graphed(self, fn, graphs: bool, args: tuple = ()) -> Graphed:
+    def _graphed(self, fn, name: str, graphs: bool,
+                 args: tuple = ()) -> Graphed:
         return Graphed(fn, (self.pos, self.vel, self.mass, self.acc,
-                            self.orig, self.afm, self.k_env),
-                       self.pos.device, graphs, self._pool, args)
+                            self.orig, self.afm, self.k_env, self.overflows),
+                       self.pos.device, name, graphs, self._pool, args)
 
     def _reset(self, n: int, mass0) -> None:
         self.n = n
@@ -377,8 +415,9 @@ class _AdaptiveLoop(_PaddedLoop):
 
     def _rebuild_body(self):
         """The rebuild over the buffers: the fields (and the held far+mid
-        when it spans rebuilds) in the new order and the next k_env
-        written back; returns (built, s_valid)."""
+        when it spans rebuilds) in the new order, the next k_env written
+        back and the build's overflow flags counted; returns (built,
+        s_valid)."""
         fields, built, (s_valid, k_next) = self._rebuild_fn(
             self.pos, self.vel, self.mass, self.acc, self.orig, self.k_env,
             self.afm if self.span else None)
@@ -386,18 +425,23 @@ class _AdaptiveLoop(_PaddedLoop):
         if self.span:
             self.afm.copy_(fields[5])
         self.k_env.copy_(k_next)
+        _count_overflows(self.overflows, build_flags(built[0], built[2]))
         return built, s_valid
 
     def _build(self) -> int:
         """Rebuild: the buffers in the new order, self.built, self.k_env;
         returns the validity horizon (the one host read)."""
         self.built, s_valid = self._rebuild_graph()
-        return int(s_valid.item())
+        with span("nbody.rebuild.horizon_read"):
+            return int(s_valid.item())
 
     def rebuild(self) -> None:
-        s_valid = self._build()
+        with span("nbody.rebuild"):
+            s_valid = self._build()
         self.left, self.j = s_valid, 0
+        self.start_rebuilds += self.n_rebuilds == 0
         self.n_rebuilds += 1
+        self.builds += 1
         if self.span and self.cfg.span_age_mult > 0:
             self.r_eff = min(max(self.cfg.span_age_mult * s_valid, 1), self.r)
 
@@ -463,11 +507,12 @@ def _loop_for(loops: dict, kind, cfg: SimConfig, state: ParticleState,
     captured as it meets them."""
     rows = -(-state.n // cfg.force_tile) * cfg.force_tile
     key = (cfg, rows, state.device)
-    loop = loops.get(key)
-    if loop is None:
-        loop = loops[key] = kind(cfg, state, graphs)
-    else:
-        loop.load(state)
+    with span("nbody.loop.load"):
+        loop = loops.get(key)
+        if loop is None:
+            loop = loops[key] = kind(cfg, state, graphs)
+        else:
+            loop.load(state)
     return loop
 
 
@@ -543,11 +588,6 @@ class AdaptiveStepper:
         return self._loop.snapshot()
 
 
-# the seven overflow flags of a band build, in the order of the tensor
-# _CycleLoop.cycle returns
-BUILD_FLAGS = ("ss", "sup", "mid", "cmid", "near", "cells", "g2")
-
-
 def _cycle_hold(cfg: SimConfig, k: int) -> int:
     """The far+mid hold of a k-step cycle: cfg.hold_farmid, or 1 when it
     does not divide k."""
@@ -568,7 +608,9 @@ class _CycleLoop(_PaddedLoop):
     that length, unless `graphs` is False or the config has no hand
     kernels (_graphed); the graphs keep their results in the buffers and
     share one pool.  `load` starts the loop again from another state of
-    the same padded row count, reusing the graphs."""
+    the same padded row count, reusing the graphs; it keeps the counters
+    `builds` (cycles run) and `overflows` (as _AdaptiveLoop's, added to
+    by every cycle graph)."""
 
     def __init__(self, cfg: SimConfig, state: ParticleState,
                  graphs: bool = True):
@@ -579,6 +621,9 @@ class _CycleLoop(_PaddedLoop):
         self._pool = (torch.cuda.graph_pool_handle()
                       if self.graphs and capturable(self.pos.device) else None)
         self._cycles: dict = {}         # k -> Graphed
+        self.overflows = torch.zeros(len(BUILD_FLAGS) + 1, dtype=torch.int64,
+                                     device=self.pos.device)
+        self.builds = 0
 
     def load(self, state: ParticleState) -> None:
         """Start again from `state`, whose padded row count must be the
@@ -587,8 +632,8 @@ class _CycleLoop(_PaddedLoop):
         self.n, self.mass0 = state.n, state.mass
 
     def _cycle(self, k: int) -> torch.Tensor:
-        """One k-step cycle over the buffers; returns the build's
-        overflow flags (a device bool [7], BUILD_FLAGS).  k, and with it
+        """One k-step cycle over the buffers; counts the build's overflow
+        flags and returns them (build_flags).  k, and with it
         the drift bound's horizon, the hold r and the prediction time
         0.5 (r - 1) dt, is constant for each graph, so baking them in at
         capture is right."""
@@ -615,9 +660,9 @@ class _CycleLoop(_PaddedLoop):
                 for buf, x in ((self.pos, st.pos), (self.vel, st.vel),
                                (self.acc, acc)):
                     buf.copy_(x)
-        return torch.stack([getattr(bands, f"{f}_overflow")
-                            for f in BUILD_FLAGS[:5]]
-                           + [cells.overflow, cells.overflow_g2])
+        flags = build_flags(cells, bands)
+        _count_overflows(self.overflows, flags)
+        return flags
 
     def cycle(self, k: int) -> torch.Tensor:
         """One cycle of k steps, its graph captured on first use; returns
@@ -627,8 +672,9 @@ class _CycleLoop(_PaddedLoop):
         if graph is None:
             graph = self._cycles[k] = Graphed(
                 self._cycle, (self.pos, self.vel, self.mass, self.acc,
-                              self.orig), self.pos.device, self.graphs,
-                self._pool, (k,))
+                              self.orig, self.overflows), self.pos.device,
+                f"cycle.{k}", self.graphs, self._pool, (k,))
+        self.builds += 1
         return graph()
 
 
@@ -669,17 +715,17 @@ class _GraphedStep:
     """`step_fn(state, cfg)` (step_barnes_hut, step_direct, or an
     ensemble's step over [E, ...] fields) over buffers of the state's
     shape: on CUDA, with the hand kernels (_graphed) and unless `graphs`
-    is False, one captured graph (utils/graphs.Graphed) that reads
-    nothing back.  The step reads no acceleration.  A call copies the
-    state in and returns copies of the results, which the next replay
-    overwrites in the graph's outputs."""
+    is False, one captured graph (utils/graphs.Graphed, named `name`)
+    that reads nothing back.  The step reads no acceleration.  A call
+    copies the state in and returns copies of the results, which the
+    next replay overwrites in the graph's outputs."""
 
     def __init__(self, cfg: SimConfig, state: ParticleState, step_fn,
-                 graphs: bool = True):
+                 name: str, graphs: bool = True):
         self.cfg = cfg
         self._step_fn = step_fn
         self.pos, self.vel, self.mass = (x.clone() for x in state[:3])
-        self._graph = Graphed(self._body, (), state.device,
+        self._graph = Graphed(self._body, (), state.device, name,
                               _graphed(cfg, graphs))
 
     def _body(self) -> ParticleState:
@@ -688,11 +734,12 @@ class _GraphedStep:
                              self.cfg)
 
     def __call__(self, state: ParticleState) -> ParticleState:
-        for buf, x in zip((self.pos, self.vel, self.mass), state[:3]):
-            buf.copy_(x)
-        out = self._graph()
-        return ParticleState(pos=out.pos.clone(), vel=out.vel.clone(),
-                             mass=state.mass, acc=out.acc.clone())
+        with span("nbody.step"):
+            for buf, x in zip((self.pos, self.vel, self.mass), state[:3]):
+                buf.copy_(x)
+            out = self._graph()
+            return ParticleState(pos=out.pos.clone(), vel=out.vel.clone(),
+                                 mass=state.mass, acc=out.acc.clone())
 
 
 class Simulation:
@@ -703,8 +750,11 @@ class Simulation:
     step) or "direct" (O(N^2)).  `device` defaults to CUDA and raises
     when no GPU is present; pass device="cpu" to run the plain versions
     on the CPU.  `n_rebuilds` counts the adaptive runner's band rebuilds
-    over every `run_scan` call; `walk_stats` sums the rope walk's
-    lockstep iterations and host reads over every reference step.
+    over every `run_scan` call, `n_start_rebuilds` those of them that
+    began a call (the others ran out a validity horizon), and
+    `counters()` reads them with the band builds and overflows of the
+    adaptive loops and the fixed-K cycles; `walk_stats` sums the rope
+    walk's lockstep iterations and host reads over every reference step.
 
     On CUDA the per-step rebuild, the direct step, the adaptive runner
     and the fixed-K cycles run as captured CUDA graphs
@@ -749,7 +799,8 @@ class Simulation:
         if step is None:
             step = self._steps[key] = _GraphedStep(
                 self.cfg, state,
-                step_direct if self.method == "direct" else step_barnes_hut)
+                step_direct if self.method == "direct" else step_barnes_hut,
+                "step")
         return step(state)
 
     def step(self, state: ParticleState) -> ParticleState:
@@ -781,24 +832,46 @@ class Simulation:
         with a full rebuild each; with rebuild_every = K > 1 the adaptive
         runner (cfg.adaptive_rebuild) or fixed-K cycles (K-step cycles,
         then one cycle of the remainder) reuse the bands."""
-        self._check_device(state)
-        self._check_overflow(state)
-        k = self.cfg.rebuild_every
-        if self.method != "barnes_hut" or k <= 1:
-            for _ in range(n_steps):
-                state = self._step(state)
+        with span("nbody.run_scan"):
+            self._check_device(state)
+            self._check_overflow(state)
+            k = self.cfg.rebuild_every
+            if self.method != "barnes_hut" or k <= 1:
+                for _ in range(n_steps):
+                    state = self._step(state)
+                return state
+            if self.cfg.adaptive_rebuild:
+                state, n_rb = _run_adaptive(self._loops, self.cfg, state,
+                                            n_steps)
+                self.n_rebuilds += n_rb
+                return state
+            n_cycles, rem = divmod(n_steps, k)
+            if n_cycles:
+                state = _run_cycles(self._cycles, self.cfg, state, n_cycles,
+                                    k)
+            if rem:
+                state = _run_cycles(self._cycles, self.cfg, state, 1, rem)
             return state
-        if self.cfg.adaptive_rebuild:
-            state, n_rb = _run_adaptive(self._loops, self.cfg, state,
-                                        n_steps)
-            self.n_rebuilds += n_rb
-            return state
-        n_cycles, rem = divmod(n_steps, k)
-        if n_cycles:
-            state = _run_cycles(self._cycles, self.cfg, state, n_cycles, k)
-        if rem:
-            state = _run_cycles(self._cycles, self.cfg, state, 1, rem)
-        return state
+
+    @property
+    def n_start_rebuilds(self) -> int:
+        return sum(loop.start_rebuilds for loop in self._loops.values())
+
+    def counters(self) -> dict:
+        """Counts over every run_scan call: "rebuilds"
+        (n_rebuilds), "start_rebuilds" (n_start_rebuilds), "builds" (the
+        band builds of the adaptive loops and the fixed-K cycles),
+        "overflowed_builds" (those with any flag of BUILD_FLAGS set) and
+        "overflow_by_flag" (builds with each flag set).  One host read;
+        the per-step rebuild (K <= 1) counts nothing."""
+        loops = [*self._loops.values(), *self._cycles.values()]
+        counts = (torch.stack([loop.overflows for loop in loops]).sum(0)
+                  .tolist() if loops else [0] * (len(BUILD_FLAGS) + 1))
+        return {"rebuilds": self.n_rebuilds,
+                "start_rebuilds": self.n_start_rebuilds,
+                "builds": sum(loop.builds for loop in loops),
+                "overflowed_builds": counts[-1],
+                "overflow_by_flag": dict(zip(BUILD_FLAGS, counts[:-1]))}
 
     def make_stepper(self, state: ParticleState) -> Optional[AdaptiveStepper]:
         """A persistent stepper for interactive use, or None when the
@@ -819,24 +892,27 @@ class Simulation:
         if self._overflow_checked:
             return
         self._overflow_checked = True
-        cfg = self.cfg
-        cs, perm, lo, size = sort_by_morton(state.pos, cfg)
-        ps, ms, csp = forces.pad_sorted(state.pos[perm], state.mass[perm], cs,
-                                        cfg.force_tile)
-        cells = build_source_cells(csp, ps, ms, cfg.force_tile, cfg.g,
-                                   cfg.cell_capacity, lo, size,
-                                   g2_factor=cfg.g2_cap_factor,
-                                   bits=cfg.morton_bits)
-        if bool(cells.overflow):
-            warnings.warn(
-                f"adaptive-cell capacity overflow: n_cells="
-                f"{int(cells.n_cells)} > cell_capacity={cfg.cell_capacity}; "
-                "truncated cells' mass is MISSING from all forces — raise "
-                f"cfg.cell_cap_factor (now {cfg.cell_cap_factor})",
-                RuntimeWarning, stacklevel=3)
-        elif bool(cells.overflow_g2):
-            warnings.warn(
-                "grandchild-segment cap overflow (graceful): some children "
-                "take exact P2P instead of grandchild monopoles — raise "
-                f"cfg.g2_cap_factor (now {cfg.g2_cap_factor})",
-                RuntimeWarning, stacklevel=3)
+        with span("nbody.check_overflow"):
+            cfg = self.cfg
+            cs, perm, lo, size = sort_by_morton(state.pos, cfg)
+            ps, ms, csp = forces.pad_sorted(state.pos[perm],
+                                            state.mass[perm], cs,
+                                            cfg.force_tile)
+            cells = build_source_cells(csp, ps, ms, cfg.force_tile, cfg.g,
+                                       cfg.cell_capacity, lo, size,
+                                       g2_factor=cfg.g2_cap_factor,
+                                       bits=cfg.morton_bits)
+            if bool(cells.overflow):
+                warnings.warn(
+                    f"adaptive-cell capacity overflow: n_cells="
+                    f"{int(cells.n_cells)} > cell_capacity="
+                    f"{cfg.cell_capacity}; truncated cells' mass is MISSING "
+                    "from all forces — raise cfg.cell_cap_factor (now "
+                    f"{cfg.cell_cap_factor})",
+                    RuntimeWarning, stacklevel=3)
+            elif bool(cells.overflow_g2):
+                warnings.warn(
+                    "grandchild-segment cap overflow (graceful): some "
+                    "children take exact P2P instead of grandchild monopoles "
+                    f"— raise cfg.g2_cap_factor (now {cfg.g2_cap_factor})",
+                    RuntimeWarning, stacklevel=3)

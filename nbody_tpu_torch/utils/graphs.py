@@ -17,6 +17,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from nbody_tpu_torch.ops.cuda import launch
+from nbody_tpu_torch.utils.profiling import span
 
 
 def capturable(device: torch.device) -> bool:
@@ -51,12 +52,16 @@ class Graphed:
     Graphs that share a memory `pool` must replay one at a time on one
     stream, and none may keep a result in a temporary of another: each
     keeps its results in the owner's buffers or in its own live
-    outputs."""
+    outputs.
+
+    Every launch, a replay or an eager call, is the span
+    ``nbody.graph.<name>`` (utils/profiling.span)."""
 
     def __init__(self, fn: Callable, buffers: Sequence[torch.Tensor],
-                 device: torch.device, capture: bool = True,
+                 device: torch.device, name: str, capture: bool = True,
                  pool: Optional[tuple] = None, args: tuple = ()):
         self._fn = weakref.WeakMethod(fn)
+        self.span = f"nbody.graph.{name}"
         self.args = args
         self.buffers = tuple(buffers)
         self.device = torch.device(device)
@@ -71,11 +76,12 @@ class Graphed:
         return self._fn()(*self.args)
 
     def __call__(self):
-        if not self.captures:
-            return self.run()
-        if self.graph is None:
+        if self.captures and self.graph is None:
             self._capture()
-        self.graph.replay()
+        with span(self.span):
+            if not self.captures:
+                return self.run()
+            self.graph.replay()
         launch.add(self.launches)
         return self.out
 

@@ -1,5 +1,5 @@
-"""Benchmark harness: per-frame and per-phase timing, a profiler trace and
-host <-> device transfer rates.
+"""Benchmark harness: per-frame and per-phase timing, a profiler trace,
+the program's spans in it, and host <-> device transfer rates.
 
 The nbody_v5_bench loop (nbody_v5_bench.cu:346-366: cudaEvent timing
 around each simulationStep and a `Frame | ms | FPS` table) becomes host
@@ -16,6 +16,7 @@ import time
 from typing import Callable, Dict, List
 
 import torch
+from torch.autograd import profiler as autograd_profiler
 
 from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.state import ParticleState, default_device
@@ -141,6 +142,22 @@ def phase_times(state: ParticleState, cfg: SimConfig, iters: int = 10,
                                                     size),
                                  iters=iters)["median_ms"]
     return out
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A range named `name` in the active torch.profiler session
+    (``record_function``), or, with no session active, one shared no-op
+    context: with tracing off a span costs an attribute read and a
+    ``with``.  The program's spans are named ``nbody.*``; a graph's
+    kernels carry the correlation id of their ``cudaGraphLaunch``, so in
+    the trace each device op belongs to the innermost span that holds
+    its launch."""
+    if autograd_profiler._is_profiler_enabled:
+        return autograd_profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
