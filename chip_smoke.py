@@ -12,9 +12,18 @@ outputs, or the run fails), then [far edges]: the far sweep bit
 for bit at edge counts (n off any tile size, 0, 1, 7 and all live rows,
 a live count past the rows, massless pads, the live list past one staged
 chunk, the ensemble's and the main path's sizes), each timed against its
-20-op bound and its arithmetic's ceiling.  Then it drives the paths of
-the v5_bench preset (N = 1,000,000, force_tile 512, no_ss) with the
-launch counts zeroed before each and read after it:
+20-op bound and its arithmetic's ceiling, then [classify]: the band
+classifier's kernel (csrc/band_classify.cu) bit for bit against its
+plain version (13 arrays, 5 flags) at the 100k and 1M start states, the
+1M first rebuild's skins, a uniform skin, the tools' config and small
+caps (every overflow flag and the window cap's whole-child drop), one
+launch a call, its time beside the plain version's and its bound at both
+benchmark cells' shapes.  Then it drives the paths of
+the v5_bench preset (N = 1,000,000, force_tile 512, no_ss) with every
+kernel's launch count (ops/cuda/launch.reset, .counts) zeroed before each
+and read after it; wherever bands are built, the classifier must launch
+once a build (a step, a rebuild, a cycle, an ensemble member, a sharded
+rebuild), and once in each graph that builds, never in an inner step:
   [main]   the per-step rebuild, ``Simulation(cfg).step`` (a captured
            CUDA graph): one warm-up (the capture) and three timed steps,
            a profile (taken after [graphs], below), a per-phase
@@ -155,14 +164,15 @@ import torch
 # bench's (python -m nbody_tpu_torch.bench), so both read one count
 from nbody_tpu_torch.bench import (BOUNDS, DRIFT_CRITERION, DRIFT_LIMIT,
                                    FLOPS_PER_PAIR, PEAK_BYTES, PEAK_FP32,
-                                   kernel_calls, work)
+                                   TIMED_CALLS, kernel_calls, work)
 from nbody_tpu_torch.config import PRESETS
 from nbody_tpu_torch.models import simulation
 from nbody_tpu_torch.models.simulation import Simulation, sort_by_morton
 from nbody_tpu_torch.init import make_initial_state
 from nbody_tpu_torch.ops import bbox, forces, integrate, panel
 from nbody_tpu_torch.ops.cells import build_source_cells
-from nbody_tpu_torch.ops.cuda import build, forces as kern
+from nbody_tpu_torch.ops.cuda import build, classify, forces as kern
+from nbody_tpu_torch.ops.cuda import launch as klaunch
 from nbody_tpu_torch.ops.cuda import panel as panel_kern
 from nbody_tpu_torch.tools import (
     common as tool_common, prof_cadence, prof_capdemand, prof_cells,
@@ -446,14 +456,14 @@ def phase_breakdown(cfg, state):
         cs, ps, ms, cfg.force_tile, cfg.g, cfg.cell_capacity, box_lo,
         box_size, g2_factor=cfg.g2_cap_factor, bits=cfg.morton_bits))
 
-    def classify():
+    def band_lists():
         supers = forces.make_supers(cells)
         ss = forces.make_ss(supers, cfg)
         subs = forces.target_subspheres(ps, cfg.force_tile, codes=cs,
                                         bits=cfg.morton_bits)
         return supers, ss, forces.cell_band_lists(subs, ss, supers, cells, cfg)
 
-    supers, ss, bands = timed("classify", classify)
+    supers, ss, bands = timed("classify", band_lists)
     tables = timed("tables", lambda: forces.build_cell_tables(cells, supers,
                                                               ss, bands))
     acc = timed("far", lambda: kern.far_sweep(ps, ss, cfg))
@@ -641,10 +651,10 @@ def runner_phase(base, steps, chunk=32):
         raise RuntimeError("prof_kilostep's config differs from v5_bench")
     ic = make_initial_state(cfg, device=DEVICE)
     sync()
-    kern.reset_launches()
+    klaunch.reset()
     res = prof_kilostep.gate(ic, cfg, steps, chunk=chunk, log_every=0)
     sim = res["sim"]
-    launches = dict(kern.LAUNCHES)
+    launches = main_launches()
     rebuilds = sim.n_rebuilds
     taken, state = res["drift_steps"], res["state"]
     log(f"[runner] v5_bench n={cfg.n}: {taken} steps in chunks of {chunk}, "
@@ -657,7 +667,7 @@ def runner_phase(base, steps, chunk=32):
     log(f"[runner] energy drift {res['drift']:.6e} over {taken} steps "
         f"(E0 {res['e0']:.9e}, E1 {res['e1']:.9e}); 0.2% criterion: "
         f"{verdict} (not enforced); limit {DRIFT_LIMIT:.0%}")
-    check_runner_launches(launches, taken)
+    check_runner_launches(launches, taken, rebuilds)
     check_finite("runner", state)
     if not res["drift"] < DRIFT_LIMIT:
         raise RuntimeError(f"energy drift {res['drift']} >= {DRIFT_LIMIT}")
@@ -704,8 +714,9 @@ def runner_phase(base, steps, chunk=32):
     tile_order_report("kernels runner", bands, tables)
     per_graph = dict(loop_launches(*sim._loops.values()),
                      **check_syncs(sim, ic, nxt, chunk))
-    log(f"[runner] force-kernel launches a replay, per graph of the "
-        f"runner (the refresh_moments one from the sync check): {per_graph}")
+    log(f"[runner] kernel launches a replay, per graph of the runner (the "
+        f"refresh_moments one from the sync check): {per_graph}")
+    check_builds("runner", per_graph)
     res["launches_per_graph"] = per_graph
     # a loop whose refresh graph is captured, at its first inner step
     loop = simulation._AdaptiveLoop(cfg, nxt)
@@ -721,10 +732,15 @@ def runner_phase(base, steps, chunk=32):
     return launches, errs, timing, differ, res
 
 
-def check_runner_launches(launches, steps):
+def check_runner_launches(launches, steps, rebuilds=None):
     """The adaptive runner's launches over `steps` steps, as counted
     under graph replay too: one near sweep a step, one far and one table
-    sweep a far+mid refresh, and between one refresh and one a step."""
+    sweep a far+mid refresh, between one refresh and one a step, and,
+    given the `rebuilds`, one classifier launch a rebuild."""
+    if rebuilds is not None and launches["band_classify"] != rebuilds:
+        raise RuntimeError(f"classifier launches "
+                           f"{launches['band_classify']} != {rebuilds} "
+                           f"rebuilds")
     if launches["near_span"] != steps:
         raise RuntimeError(f"near launches {launches['near_span']} != "
                            f"{steps} steps")
@@ -825,12 +841,33 @@ def state_diff(a, b):
     return int(rows.sum()), worst
 
 
+def main_launches():
+    """The main path's kernel launches since the last klaunch.reset():
+    every registered count but the probe's panel sweeps."""
+    return {k: v for k, v in klaunch.counts().items()
+            if k not in panel_kern.LAUNCHES}
+
+
 def graph_launches(g):
-    """The force kernels one replay of Graphed `g` launches (None before
-    its capture)."""
+    """The kernels one replay of Graphed `g` launches, the probe's panel
+    sweeps left out (None before its capture)."""
     if g.graph is None:
         return None
-    return next((d for c, d in g.launches if c is kern.LAUNCHES), None)
+    return {k: v for _, d in g.launches for k, v in d.items()
+            if k not in panel_kern.LAUNCHES}
+
+
+def check_builds(label, per_graph):
+    """Raise unless each graph of `per_graph` ({graph: its launches a
+    replay, None before its capture}) launches the band classifier once
+    if it builds bands (a rebuild, a step or a cycle) and never if not
+    (an inner step)."""
+    for g, d in per_graph.items():
+        want = 0 if g.startswith("inner") else 1
+        if d is not None and d["band_classify"] != want:
+            raise RuntimeError(f"[{label}] graph {g!r} launches the "
+                               f"classifier {d['band_classify']} times a "
+                               f"replay, not {want}")
 
 
 def memory_of(fn):
@@ -874,9 +911,9 @@ def ab_times(fns):
     and result."""
     out = {k: [] for k in fns}
     for kind in ("eager", "graphed", "graphed", "eager"):
-        kern.reset_launches()
+        klaunch.reset()
         res, ms = timed_ms(fns[kind])
-        out[kind].append((ms, dict(kern.LAUNCHES), res))
+        out[kind].append((ms, main_launches(), res))
     return out
 
 
@@ -984,6 +1021,10 @@ def graphs_phase(cfg, gate):
         f"bit-equal, every integer one {'equal' if ints_same else 'NOT'}")
     if not ints_same or (ee_max == 0 and (g_rows or built_same < len(built))):
         raise RuntimeError("[graphs] graphed run parts from eager")
+    if launches["graphed"][0]["band_classify"] != e_rb:
+        raise RuntimeError(f"[graphs] classifier launches a call "
+                           f"{launches['graphed'][0]['band_classify']}, "
+                           f"rebuilds {e_rb}")
     ms = {k: [c[0] for c in v] for k, v in ab.items()}
     log(f"[graphs] {GRAPH_STEPS}-step calls, eager/graphed/graphed/eager "
         f"(ms): {ms['eager'][0]:.1f} / {ms['graphed'][0]:.1f} / "
@@ -991,7 +1032,8 @@ def graphs_phase(cfg, gate):
         f"{GRAPH_STEPS * 1e3 / np.mean(ms['eager']):.3f} steps/s, graphed "
         f"{GRAPH_STEPS * 1e3 / np.mean(ms['graphed']):.3f}")
     per_graph = loop_launches(g_loop)
-    log(f"[graphs] force-kernel launches a replay, per graph: {per_graph}")
+    log(f"[graphs] kernel launches a replay, per graph: {per_graph}")
+    check_builds("graphs", per_graph)
 
     # host syncs of every step, on graphs the calls above captured
     syncs = {}
@@ -1071,6 +1113,13 @@ def graphs_phase(cfg, gate):
         if not same or n_sync:
             raise RuntimeError(f"[graphs] per-step rebuild at {label}: "
                                f"bit-equal {same}, {n_sync} syncs")
+        builds = {c[1]["band_classify"] for v in ab.values() for c in v}
+        if builds != {n_steps}:
+            raise RuntimeError(f"[graphs] per-step rebuild at {label}: "
+                               f"classifier launches a call {builds}, "
+                               f"{n_steps} steps")
+        check_builds(f"graphs {label}",
+                     {"step": per_step[label]["launches_per_graph"]})
         del sim, ic, ab, want, st, gstep
 
     # bh_4m's runner on one card: peak memory eager and graphed
@@ -1200,7 +1249,7 @@ def cycles_path():
     check_finite("cycles", res.pop("state"))
     refreshes = n_cycles * (k // r) + rem // simulation._cycle_hold(c, rem)
     want = {"far_sweep": refreshes, "table_sweep": refreshes,
-            "near_span": CYCLE_STEPS}
+            "near_span": CYCLE_STEPS, "band_classify": n_cycles + (rem > 0)}
     if res["launches"] != want:
         raise RuntimeError(f"[graph paths] cycle launches {res['launches']}, "
                            f"the schedule's {want}")
@@ -1212,7 +1261,8 @@ def cycles_path():
     res["overflow"] = [dict(zip(simulation.BUILD_FLAGS,
                                 map(bool, loop.cycle(n).tolist())))
                        for n in lengths]
-    log(f"[graph paths] cycles: force-kernel launches a replay, per graph: "
+    check_builds("graph paths cycles", res["launches_per_graph"])
+    log(f"[graph paths] cycles: kernel launches a replay, per graph: "
         f"{res['launches_per_graph']}; overflow flags, cycle by cycle: "
         + "; ".join(f"{n} steps: " + " ".join(f"{f} {int(v)}"
                                               for f, v in fl.items())
@@ -1262,7 +1312,7 @@ def tools_phase(base, state, step, e_hot):
         raise RuntimeError(f"{path} did not load back bit for bit")
     n = hot.n
     secs, out = {}, {}
-    kern.reset_launches()
+    klaunch.reset()
 
     def run(name, fn):
         t0 = time.perf_counter()
@@ -1394,7 +1444,7 @@ def tools_phase(base, state, step, e_hot):
     log("[tools] prof_runner " + " | ".join(parts))
     out.update(stage_tools(base, hot, run, finite, {
         k: out[f"runner_fit_{k}"] for k in ("IC", "hot")}))
-    launches = dict(kern.LAUNCHES)
+    launches = main_launches()
     log(f"[tools] launches {launches}; seconds " + ", ".join(
         f"{k} {v:.1f}" for k, v in secs.items())
         + f"; total {sum(secs.values()):.1f} s")
@@ -1467,7 +1517,13 @@ def stage_tools(base, hot, run, finite, fits):
                 counts["compact0"], counts["compact1"], counts["compact2"],
                 counts["compact3"][:, 0], counts["compact3"][:, 1],
                 counts["windows"]))))
-    out["classify"] = {"ms": r["ms"], "ops": r["ops"]}
+    p = r["production"]
+    log(f"[tools] prof_classify's production classifier ({p['route']}): "
+        f"{p['ms']:.3f} ms, {p['ops']} aten ops, {p['launches']} launch")
+    if p["launches"] != 1:
+        raise RuntimeError("[tools] prof_classify's production classifier "
+                           "did not launch the kernel once")
+    out["classify"] = {"ms": r["ms"], "ops": r["ops"], "production": p}
 
     first, count = (torch.from_numpy(x).to(DEVICE)
                     for x in prof_winmask.runs(4096, 1024))
@@ -1536,7 +1592,7 @@ def stage_tools(base, hot, run, finite, fits):
 def probe_phase():
     """nbody_tpu_torch.tools.prof_mxu at its own shape; each variant held
     against its plain version.  Returns the kernel JSON rows."""
-    panel_kern.reset_launches()
+    klaunch.reset()
     res = prof_mxu.run(device=DEVICE, log=lambda m: log(f"[probe] {m}"))
     launches = dict(panel_kern.LAUNCHES)
     inputs = res["inputs"]
@@ -1616,7 +1672,7 @@ def check_launches(label, launches):
 
 
 def launches_since_reset(label):
-    return check_launches(label, dict(kern.LAUNCHES))
+    return check_launches(label, main_launches())
 
 
 def reference_phase(cfg, ic):
@@ -1624,13 +1680,13 @@ def reference_phase(cfg, ic):
     cfg.n, its force against a float64 direct sum and against the
     production step's on the same state."""
     sim = Simulation(cfg, method="barnes_hut_reference", device=DEVICE)
-    kern.reset_launches()
+    klaunch.reset()
     sync()
     t0 = time.perf_counter()
     out = sim.step(ic)
     sync()
     ms = 1e3 * (time.perf_counter() - t0)
-    launches = dict(kern.LAUNCHES)
+    launches = main_launches()
     st = sim.walk_stats
     log(f"[reference] v5_bench n={cfg.n}: one barnes_hut_reference step "
         f"{ms:.1f} ms, {st['iterations']} lockstep iterations, "
@@ -1716,6 +1772,17 @@ def cli_phase():
         res["launches_run"] = check_launches("cli run", json.loads(
             [l for l in done.stderr.splitlines()
              if l.startswith(tag)][-1][len(tag):]))
+        # band builds: the first step's, the run's (its counters) and
+        # --diagnostics' one; a classifier launch each
+        tag = "counters: "
+        counters = json.loads([l for l in done.stderr.splitlines()
+                               if l.startswith(tag)][-1][len(tag):])
+        builds = counters["builds"] + 2
+        log(f"[cli run] {builds} band builds, "
+            f"{res['launches_run']['band_classify']} classifier launches")
+        if res["launches_run"]["band_classify"] != builds:
+            raise RuntimeError("[cli run] a classifier launch per band build "
+                               "expected")
         with open(dump) as f:
             head = [next(f) for _ in range(4)]
         want = ["# Barnes-Hut N-Body Simulation Results\n",
@@ -1758,7 +1825,7 @@ def cli_phase():
             raise RuntimeError(f"cli {label} returned {rc}")
 
     in_process("info", ["info"])
-    kern.reset_launches()
+    klaunch.reset()
     in_process("bench", ["bench", "--preset", "v5_bench", "--frames", "5",
                          "--phases"])
     res["launches_bench"] = launches_since_reset("cli bench")
@@ -1773,7 +1840,7 @@ def render_phase():
     cfg = PRESETS["v5"]
     sim = Simulation(cfg, device=DEVICE)
     state = sim.init_state()
-    kern.reset_launches()
+    klaunch.reset()
     t0 = time.perf_counter()
     state = sim.run_scan(state, RENDER_STEPS)
     sync()
@@ -1815,7 +1882,7 @@ def view_phase(cfg, state):
     from nbody_tpu_torch.viz.viewer import SimViewer, serve
 
     sim = Simulation(cfg, device=DEVICE)
-    kern.reset_launches()
+    klaunch.reset()
     viewer = SimViewer(sim, state, cfg)
     viewer.start()
     server = serve(viewer, port=0)
@@ -1899,7 +1966,7 @@ def shard_rank(mesh, cfg, n_steps):
 
     slab = shard.shard_state(make_initial_state(cfg, device=mesh.device),
                              mesh)
-    kern.reset_launches()
+    klaunch.reset()
     mesh.stats.clear()
     dev_sync()
     t0 = time.perf_counter()
@@ -1907,7 +1974,7 @@ def shard_rank(mesh, cfg, n_steps):
         cfg, mesh, n_steps, return_stats=True)(slab)
     dev_sync()
     res = {"rank": mesh.rank, "wall_s": time.perf_counter() - t0,
-           "rebuilds": n_rb, "launches": dict(kern.LAUNCHES),
+           "rebuilds": n_rb, "launches": main_launches(),
            "stats": dict(mesh.stats),
            "finite": bool(torch.isfinite(out.pos).all()
                           and torch.isfinite(out.vel).all())}
@@ -2051,14 +2118,14 @@ def shard_phase():
         run = simulation.make_adaptive_runner(cfg, SHARD_STEPS,
                                               return_stats=True)
         run(state)
-        kern.reset_launches()
+        klaunch.reset()
         torch.cuda.reset_peak_memory_stats()
         sync()
         t0 = time.perf_counter()
         out, rb = run(state)
         sync()
         return (out, rb, 1e3 * (time.perf_counter() - t0) / SHARD_STEPS,
-                torch.cuda.max_memory_allocated(), dict(kern.LAUNCHES))
+                torch.cuda.max_memory_allocated(), main_launches())
 
     want, want_rb, ms_step, peak, launches1 = single(padded)
     check_finite("shard single process", want)
@@ -2144,8 +2211,14 @@ def shard_phase():
             raise RuntimeError(f"[shard rank {r['rank']}] host reads: "
                                f"rebuilds {reads_rb}, inner {reads_in}")
     launches = {k: sum(r["launches"][k] for r in ranks)
-                for k in ("far_sweep", "table_sweep", "near_span")}
+                for k in ranks[0]["launches"]}
     check_launches("shard", launches)
+    # a classifier launch a sharded rebuild, on every rank and in one process
+    builds = [(r["launches"]["band_classify"], r["rebuilds"]) for r in ranks]
+    builds.append((launches1["band_classify"], want_rb))
+    if any(n != rb for n, rb in builds):
+        raise RuntimeError(f"[shard] (classifier launches, rebuilds) of each "
+                           f"rank and of the single process: {builds}")
     log(f"[shard] rank 0's slab after the last rebuild: {r0['slab']}; "
         f"s_valid per rebuild "
         f"{[s['s_valid'] for s in r0['steps'] if s['rebuild']]}; per rebuild "
@@ -2227,9 +2300,13 @@ def ensemble_phase():
                   {"eager": steps(eager), "graphed": steps(step)},
                   ENSEMBLE_STEPS)
     check_finite("ensemble", res.pop("state"))
-    kern.reset_launches()
+    klaunch.reset()
     out, ms = timed_ms(lambda: step(batched))
     launches = launches_since_reset("ensemble")
+    if launches["band_classify"] != ENSEMBLE_MEMBERS:
+        raise RuntimeError(f"[ensemble] {launches['band_classify']} "
+                           f"classifier launches for {ENSEMBLE_MEMBERS} "
+                           f"members")
     _, n_sync = count_syncs(lambda: step(batched))
     same = []
     for e, member in enumerate(members):
@@ -2296,7 +2373,7 @@ def far_edges_phase(cfg):
     total = 0
     for i, (label, n, s, live, pads) in enumerate(FAR_EDGES):
         pos, ss = far_edge_inputs(n, s, live, pads, seed=i)
-        kern.reset_launches()
+        klaunch.reset()
         k_out = kern.far_sweep(pos, ss, cfg)
         if kern.LAUNCHES["far_sweep"] != 1:
             raise RuntimeError(f"[far edges] {label}: launches "
@@ -2316,6 +2393,188 @@ def far_edges_phase(cfg):
             f"({100 * bound / ms:.1f}%), arithmetic ceiling {ceil:.4f} ms "
             f"({100 * ceil / ms:.1f}%)")
     return total
+
+
+# [classify]: the band classifier's kernel against its plain version.
+# The per-step rebuild's build at 100k, the 1M start state unskinned and
+# as the adaptive runner's first rebuild skins it, a uniform skin (the
+# sharded path's margin), the tools' config (force_tile 256, super-supers)
+# and small caps at 100k, where every overflow flag and the window cap's
+# whole-child drop fire (ss_cap 4: at 8 the 100k state's super-super lists
+# stay whole).
+CLASSIFY_SMALL_CAPS = dict(no_ss=False, ss_cap=4, sup_cap=16, mid_cap=16,
+                           cmid_cap=16, near_cap=16, win_cap=8)
+CLASSIFY_SEED = 1
+CLASSIFY_N = (1_000_000, 100_000)   # the two cells' body counts
+# FP32 operations of one (sub-sphere, source) test of the classifier: 3
+# sub, 3 mul, 2 add, sqrt, sub and min; and of the MAC ratio a source
+# then takes on its least gap: two clamps, sub, 2 mul, 2 add, sqrt, div
+# and the compare.  The grandchild-box test of stage 3's failing children
+# is left out of the count (the byte side of the bound is the larger).
+CLASSIFY_OPS_PER_TEST = 11
+CLASSIFY_OPS_PER_SOURCE = 10
+
+
+def classifier_inputs(fn):
+    """((tgt_subs, ss, supers, cells, cfg), {"skin": ...}) that fn()'s one
+    band build hands the classifier."""
+    seen = []
+    real = forces.cell_band_lists
+
+    def spy(*a, **kw):
+        seen.append((a, kw))
+        return real(*a, **kw)
+
+    forces.cell_band_lists = spy
+    try:
+        fn()
+    finally:
+        forces.cell_band_lists = real
+    if len(seen) != 1:
+        raise RuntimeError(f"{len(seen)} band builds, not one")
+    return seen[0]
+
+
+def per_step_build(cfg, state):
+    """The per-step rebuild's band build at `state` (no skins)."""
+    ps, ms, cs, _, _, _ = tool_common.sorted_padded(state, cfg)
+    return lambda: forces.build_bands(ps, ms, cs, cfg)
+
+
+def first_rebuild_build(cfg, state):
+    """The adaptive runner's first rebuild at `state` (skins for K steps)."""
+    rebuild, args = tool_common.first_rebuild(state, cfg)
+    return lambda: rebuild(*args)
+
+
+def bands_diff(label, got, want):
+    """Raise unless the kernel's CellBands equal the plain version's bit
+    for bit, after logging, for each field that differs, its differing
+    tiles and the first one's rows."""
+    bad = []
+    for f, g, w in zip(forces.CellBands._fields, got, want):
+        if g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w):
+            continue
+        bad.append(f)
+        if g.shape != w.shape or g.dtype != w.dtype:
+            log(f"[classify {label}] {f}: kernel {tuple(g.shape)} {g.dtype}, "
+                f"plain {tuple(w.shape)} {w.dtype}")
+            continue
+        if g.dim() == 0:
+            log(f"[classify {label}] {f}: kernel {bool(g)}, plain {bool(w)}")
+            continue
+        rows = (g != w).reshape(g.shape[0], -1).any(dim=1).nonzero()[:, 0]
+        t = int(rows[0])
+        log(f"[classify {label}] {f}: {rows.numel()} tiles differ, first "
+            f"tile {t}: kernel {g[t].tolist()[:40]} plain "
+            f"{w[t].tolist()[:40]}")
+    if bad:
+        raise RuntimeError(f"[classify {label}] kernel differs from plain "
+                           f"in {bad}")
+
+
+def classify_bound_ms(args, kw, bands):
+    """(least ms, "flops" or "bytes") of the classifier's work: every
+    (sub-sphere, source) test of the four stages at CLASSIFY_OPS_PER_TEST
+    and every source's MAC ratio at CLASSIFY_OPS_PER_SOURCE over the FP32
+    peak, or its inputs read once and its outputs written once over the
+    HBM peak."""
+    tgt, ss, supers, cells, _ = args
+    tiles = bands.ss_cnt.shape[0]
+    listed = sum(int(getattr(bands, f).to(torch.int64).sum())
+                 for f in ("ss_cnt", "sup_cnt", "mid_cnt"))
+    sources = tiles * ss.gmass.shape[0] + 8 * listed
+    tests = forces.SUB_FACTOR * sources
+    ins = [*tgt, ss.com, ss.diam, ss.skin, ss.gmass, supers.com, supers.diam,
+           supers.skin, supers.gmass, cells.com, cells.diam, cells.skin,
+           cells.child_com, cells.child_diam, cells.child_gmass,
+           cells.child_skin, cells.gchild_diam_max, cells.gchild_complete,
+           cells.child_first, cells.child_count, cells.gchild_com,
+           cells.gchild_gmass]
+    nbytes = sum(x.numel() * x.element_size() for x in ins + list(bands))
+    flop_ms = 1e3 * (CLASSIFY_OPS_PER_TEST * tests
+                     + CLASSIFY_OPS_PER_SOURCE * sources) / PEAK_FP32
+    byte_ms = 1e3 * nbytes / PEAK_BYTES
+    return (flop_ms, "flops") if flop_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def classify_phase():
+    """[classify]: the classifier kernel bit for bit against its plain
+    version in each case, one launch a call; its time beside the plain
+    version's and its bound at both benchmark cells' shapes.  Returns the
+    kernel JSON row (main adds its launches)."""
+    from nbody_tpu_torch.init import disk_galaxy_msvc
+
+    base = PRESETS["v5_bench"].replace(check_overflow=False)
+    c1m = base.replace(n=CLASSIFY_N[0])
+    c100k = base.replace(n=CLASSIFY_N[1], rebuild_every=1)
+    s1m = disk_galaxy_msvc(c1m.n, CLASSIFY_SEED, c1m.g, device=DEVICE)
+    s100k = disk_galaxy_msvc(c100k.n, CLASSIFY_SEED, c100k.g, device=DEVICE)
+    tools_cfg = prof_classify.make_config(c1m.n)
+    small = c100k.replace(**CLASSIFY_SMALL_CAPS)
+    inputs = {
+        "100k start state (per-step build)": classifier_inputs(
+            per_step_build(c100k, s100k)),
+        "1M start state (unskinned)": classifier_inputs(
+            per_step_build(c1m, s1m)),
+        "1M first rebuild (adaptive_drift skins)": classifier_inputs(
+            first_rebuild_build(c1m, s1m)),
+        "1M tools config (force_tile 256, super-supers, skins)":
+            classifier_inputs(first_rebuild_build(
+                tools_cfg.replace(rebuild_every=16), s1m)),
+        "100k small caps": classifier_inputs(per_step_build(small, s100k)),
+    }
+    a, kw = inputs["1M start state (unskinned)"]
+    sk = 2.0 * float(inputs["1M first rebuild (adaptive_drift skins)"][0][0]
+                     .skin.median())
+    inputs[f"1M uniform skin {sk:.4g}"] = (a, dict(kw, skin=sk))
+    res = {}
+    for label, (a, kw) in inputs.items():
+        klaunch.reset()
+        got = classify.cell_band_lists(*a, **kw)
+        want = forces.cell_band_lists_torch(*a, **kw)
+        sync()
+        if classify.LAUNCHES["band_classify"] != 1:
+            raise RuntimeError(f"[classify {label}] launches "
+                               f"{classify.LAUNCHES}")
+        bands_diff(label, got, want)
+        flags = [bool(f) for f in got[13:]]
+        means = {f: float(getattr(got, f).float().mean()) for f in (
+            "ss_cnt", "sup_cnt", "mid_cnt", "cmid_cnt", "near_cnt",
+            "win_cnt")}
+        log(f"[classify {label}] bit for bit ({len(got)} arrays); tiles "
+            f"{got.ss_cnt.shape[0]}, skin {kw.get('skin', 0.0)}, mean live "
+            + ", ".join(f"{k[:-4]} {v:.1f}" for k, v in means.items())
+            + f"; overflow {dict(zip(('ss', 'sup', 'mid', 'cmid', 'near'), flags))}")
+        res[label] = dict(means=means, flags=flags)
+    a, kw = inputs["100k small caps"]
+    if not all(res["100k small caps"]["flags"]):
+        raise RuntimeError("[classify] small caps: not every overflow flag "
+                           "fired")
+    wide = forces.cell_band_lists_torch(*a[:4], a[4].replace(win_cap=80),
+                                        **kw)
+    small_bands = classify.cell_band_lists(*a, **kw)
+    cut = int((small_bands.near_cnt < wide.near_cnt).sum())
+    log(f"[classify 100k small caps] win_cap 8 drops whole children in {cut} "
+        f"tiles (near_cnt below win_cap 80's)")
+    if cut == 0:
+        raise RuntimeError("[classify] the window cap dropped no child")
+
+    row = {"name": "band_classify", "path": "main", "route": "cuda",
+           "source": "nbody_tpu_torch/csrc/band_classify.cu",
+           "replaces": None, "library_ms": None}
+    for key, label in (("1m", "1M first rebuild (adaptive_drift skins)"),
+                       ("100k", "100k start state (per-step build)")):
+        a, kw = inputs[label]
+        k_ms = event_ms(lambda: classify.cell_band_lists(*a, **kw), 20)
+        p_ms = event_ms(lambda: forces.cell_band_lists_torch(*a, **kw), 3)
+        bound, by = classify_bound_ms(a, kw, classify.cell_band_lists(*a, **kw))
+        row.update({f"ms_{key}": k_ms, f"plain_ms_{key}": p_ms,
+                    f"bound_ms_{key}": bound, f"bound_by_{key}": by})
+        log(f"[classify {label}] kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms "
+            f"({p_ms / k_ms:.0f}x), bound {bound:.4f} ms ({by}, "
+            f"{100 * bound / k_ms:.1f}% of it reached)")
+    return row
 
 
 # [bench]: python -m nbody_tpu_torch.bench at v5_bench in full (1024
@@ -2375,6 +2634,11 @@ def bench_phase(runner_drift):
             f"pools); {secs:.1f} s")
         log(f"[bench {label}] {lines[0]}")
         check_launches(f"bench {label}", res["launches"])
+        builds = TIMED_CALLS * res["rebuilds"]
+        if res["launches"]["band_classify"] != builds:
+            raise RuntimeError(f"[bench {label}] "
+                               f"{res['launches']['band_classify']} classifier "
+                               f"launches for {builds} band builds")
         out[label] = res
     got, want = (f"{x:.6e}" for x in (out["v5_bench"]["drift"],
                                       runner_drift))
@@ -2419,6 +2683,7 @@ def main() -> int:
     }
     geo_err = {k: v[0] for k, v in geo.items()}
     edges_differ = far_edges_phase(base)
+    classify_row = classify_phase()
 
     # --- main path: v5_bench, N = 1M, through Simulation.step ------------
     cfg = base
@@ -2430,7 +2695,7 @@ def main() -> int:
     log(f"[main] warm-up step (with the one-time overflow probe and the "
         f"step graph's capture) "
         f"{1e3 * (time.perf_counter() - t0):.1f} ms")
-    kern.reset_launches()
+    klaunch.reset()
     step_ms = []
     for _ in range(3):
         prev = state
@@ -2438,13 +2703,16 @@ def main() -> int:
         state = sim.step(state)
         sync()
         step_ms.append(1e3 * (time.perf_counter() - t0))
-    launches_step = dict(kern.LAUNCHES)
+    launches_step = main_launches()
     log(f"[main] v5_bench n={cfg.n}: steps {['%.1f' % s for s in step_ms]} "
         f"ms, median {sorted(step_ms)[1]:.1f} ms/step; launches "
         f"{launches_step}")
     for k, v in launches_step.items():
         if v == 0:
             raise RuntimeError(f"main path never launched {k}")
+    if launches_step["band_classify"] != len(step_ms):
+        raise RuntimeError(f"main path: {launches_step['band_classify']} "
+                           f"classifier launches in {len(step_ms)} steps")
     check_finite("main", state)
     med, worst = direct_check(prev, state.acc, cfg)
     log(f"[main] acceleration vs float64 direct sum at 4096 bodies: median "
@@ -2491,6 +2759,20 @@ def main() -> int:
     calls = kernel_calls(cfg, ps, ms, ss, bands, tables)
     errs, main_differ = compare(calls, "kernels main", (ps, ss, cfg))
     bnd = bounds_ms(cfg, ps, ss, bands, tables)
+    per_graph = dict(
+        gate["launches_per_graph"],
+        step=graphs_res["per_step"]["1M IC"]["launches_per_graph"],
+        **paths_res["cycles"]["launches_per_graph"])
+    per_graph = {g: d for g, d in per_graph.items() if d is not None}
+
+    def launch_fields(k):
+        """A main-path kernel's launches: the runner's, [main]'s three
+        steps', a replay of each graph's and a cycles call's."""
+        return {"launches": launches[k], "launches_step": launches_step[k],
+                "launches_per_step": launches_step[k] / len(step_ms),
+                "launches_per_graph": {g: d[k] for g, d in per_graph.items()},
+                "launches_cycles": paths_res["cycles"]["launches"][k]}
+
     rows = []
     for k, (kfn, pfn) in calls.items():
         rel, abs_err = errs[k]
@@ -2500,7 +2782,7 @@ def main() -> int:
         k_ms, p_ms = event_ms(kfn, 20), event_ms(pfn, 2)
         rows.append({
             "name": k, "path": "main", "route": "cuda", "source": SOURCE[k],
-            "replaces": REPLACES[k], "launches": launches[k],
+            "replaces": REPLACES[k], **launch_fields(k),
             "max_abs_err": abs_err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bnd[k][0], "bound_by": bnd[k][1], "library_ms": None,
             "ms_runner": runner_ms[k][0], "bound_ms_runner": runner_ms[k][1],
@@ -2509,16 +2791,6 @@ def main() -> int:
             "rel_err_tools": tools_kern[k][0],
             "rel_err_t512": geo_err["t512"][k],
             "rel_err_t128": geo_err["t128"][k],
-            "launches_step": launches_step[k],
-            "launches_per_step": launches_step[k] / len(step_ms),
-            "launches_per_graph": {
-                g: d[k] for g, d in dict(
-                    gate["launches_per_graph"],
-                    step=graphs_res["per_step"]["1M IC"][
-                        "launches_per_graph"],
-                    **paths_res["cycles"]["launches_per_graph"]).items()
-                if d is not None},
-            "launches_cycles": paths_res["cycles"]["launches"][k],
         })
         log(f"[kernels main] {k}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
             f"bound {bnd[k][0]:.3f} ms ({bnd[k][1]}, "
@@ -2535,6 +2807,8 @@ def main() -> int:
                                PR6_FAR_MS["main"])
 
     tile_order_report("kernels main", bands, tables)
+    classify_row.update(launch_fields("band_classify"))
+    main_rows = rows + [classify_row]
 
     rows += probe_phase()
 
@@ -2553,7 +2827,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     shard_rows, shard_res = shard_phase()
     bench_res = bench_phase(gate["drift"])
-    for row in rows[:3]:
+    for row in main_rows:
         k = row["name"]
         row.update(launches_bench=bench_res["v5_bench"]["launches"][k],
                    launches_tools=launches_tools[k],
@@ -2575,7 +2849,7 @@ def main() -> int:
         "shard": shard_res, "tools": tools_res, "bench": bench_res,
         "graphs": graphs_res, "graph_paths": paths_res}))
 
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows + [classify_row]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -51,7 +51,7 @@ from nbody_tpu_torch.config import PRESETS, SimConfig
 from nbody_tpu_torch.init import make_initial_state
 from nbody_tpu_torch.models.simulation import Simulation
 from nbody_tpu_torch.ops import forces
-from nbody_tpu_torch.ops.cuda import forces as kern
+from nbody_tpu_torch.ops.cuda import forces as kern, launch
 from nbody_tpu_torch.tools import common
 from nbody_tpu_torch.tools.prof_nearwin import live_lanes, popcount32
 from nbody_tpu_torch.utils import metrics
@@ -299,7 +299,7 @@ def sustained(sim: Simulation, state, frames: int) -> Dict:
     runner); a call whose refresh or rebuild count differs from the
     first's raises."""
     _sync(sim.run_scan(state, frames))
-    kern.reset_launches()
+    launch.reset()
     rates, counts = [], set()
     with far_counter(state.device) as far:
         for _ in range(TIMED_CALLS):
@@ -319,7 +319,7 @@ def sustained(sim: Simulation, state, frames: int) -> Dict:
     elif not cfg.adaptive_rebuild:       # one a K-step cycle
         rebuilds = -(-frames // cfg.rebuild_every)
     return {"rates": rates, "refreshes": refreshes, "rebuilds": rebuilds,
-            "launches": dict(kern.LAUNCHES)}
+            "launches": launch.counts()}
 
 
 def timed_structure(cfg: SimConfig, state):

@@ -66,9 +66,11 @@ def _sim(args):
 def _report_launches(device) -> None:
     """The hand kernels' launch counts of this process, on stderr."""
     if device.type == "cuda":
-        from nbody_tpu_torch.ops.cuda import forces as kern
+        # importing the wrappers registers their counts
+        from nbody_tpu_torch.ops.cuda import (  # noqa: F401
+            classify, forces, launch)
 
-        print(f"kernel launches: {json.dumps(kern.LAUNCHES)}",
+        print(f"kernel launches: {json.dumps(launch.counts())}",
               file=sys.stderr)
 
 

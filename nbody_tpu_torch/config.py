@@ -7,7 +7,8 @@ carries across with ``nbody_tpu_torch.convert.config_from_dict``.
 
 ``use_pallas`` keeps its name for that reason and means "hand kernels on":
 the three force sweeps run as the CUDA kernels of ``ops/cuda/forces.py``
-(``False`` asks for their plain PyTorch versions).  The band-reuse
+and the band classifier as that of ``ops/cuda/classify.py`` (``False``
+asks for their plain PyTorch versions).  The band-reuse
 runners read ``rebuild_every``, ``adaptive_rebuild``, ``hold_farmid`` and
 the skin and hold knobs and the renderer its camera and frame size; the
 fields of sharding are read by ``parallel/shard.py``: ``mesh_shape``

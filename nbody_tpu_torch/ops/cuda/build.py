@@ -52,6 +52,13 @@ LIBRARIES = {
             # x, n, out, stream
             "nbody_inv_sqrt_eval": [_P, _I, _P, _P],
         }),
+    "band_classify": Library(
+        _PKG / "csrc" / "band_classify.cu",
+        [],
+        {
+            # args (a ClassifyArgs, ops/cuda/classify.py), stream
+            "nbody_band_classify": [_P, _P],
+        }),
     "panel": Library(
         _PKG / "csrc" / "panel.cu",
         [],

@@ -24,11 +24,6 @@ from nbody_tpu_torch.ops.cuda.launch import (check, counter, launched,
 LAUNCHES = counter("far_sweep", "table_sweep", "near_span")
 
 
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
 def heavy_first(work: torch.Tensor) -> torch.Tensor:
     """Tile indices by falling `work` ([T] int64, ties in tile order),
     computed on the tensor's device with no host read.  Block i of a

@@ -8,7 +8,9 @@ Python: a capture calls the wrapper without running the kernel, and a
 replay runs it without calling the wrapper.  So every count is
 registered here (``counter``): a capture runs inside ``uncounted``, which
 takes its launches back out and records them, and each replay ``add``s
-that record, so a reader sees the launches that ran.
+that record, so a reader sees the launches that ran.  ``reset`` zeroes
+every registered count and ``counts`` reads them all in one dict, so no
+reader has to know which module launches which kernel.
 """
 
 from __future__ import annotations
@@ -31,16 +33,31 @@ def counter(*names: str) -> Dict[str, int]:
     return counts
 
 
+def reset() -> None:
+    """Set every registered count to zero."""
+    for c in _COUNTERS:
+        for k in c:
+            c[k] = 0
+
+
+def counts() -> Dict[str, int]:
+    """Every registered count, by kernel name."""
+    return {k: v for c in _COUNTERS for k, v in c.items()}
+
+
 @contextlib.contextmanager
 def uncounted() -> Iterator[Launches]:
     """Launches counted inside the block are taken back out of every
     count when it ends.  Yields a list that then holds, per registered
-    count, what the block added to it."""
+    count, what the block added to it.  A count registered inside the
+    block (its wrapper's module first imported there, as a lazy import
+    in a graph's warm-up is) started at zero."""
     before = [(c, dict(c)) for c in _COUNTERS]
     made: Launches = []
     try:
         yield made
     finally:
+        before += [(c, dict.fromkeys(c, 0)) for c in _COUNTERS[len(before):]]
         for c, b in before:
             made.append((c, {k: c[k] - b.get(k, 0) for k in c}))
             c.update(b)

@@ -21,11 +21,6 @@ from nbody_tpu_torch.ops import panel as _plain
 LAUNCHES = counter(*(f"panel_{v}" for v in _plain.VARIANTS))
 
 
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
 def sweep(variant: str, pos3: torch.Tensor, gx: torch.Tensor,
           gy: torch.Tensor, gz: torch.Tensor, gm: torch.Tensor) -> torch.Tensor:
     """Kernel version of panel.sweep(panel.PANELS[variant], ...)."""

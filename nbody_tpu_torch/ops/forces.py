@@ -11,7 +11,8 @@ deduplicated 128-wide source windows) -> per-tile planar tables, then
 three sweeps: the far sweep over the super-super monopoles, the table
 sweep over each tile's table row, and the exact near P2P over each
 tile's windows.  The sweeps run as the CUDA kernels of
-``ops/cuda/forces.py`` when ``cfg.use_pallas`` is set and as the plain
+``ops/cuda/forces.py`` and the band lists as the kernel of
+``ops/cuda/classify.py`` when ``cfg.use_pallas`` is set, and as the plain
 PyTorch versions here otherwise.
 
 Port notes: the classification and the tables work over the static caps
@@ -458,6 +459,20 @@ def _window_masks(first: torch.Tensor, count: torch.Tensor, win_cap: int,
 
 def cell_band_lists(tgt_subs: GroupInfo, ss: Supers, supers: Supers, cells,
                     cfg: SimConfig, skin=0.0) -> CellBands:
+    """The band classification (cell_band_lists_torch): the CUDA kernel
+    of ``ops/cuda/classify.py`` when ``cfg.use_pallas`` is set (on CUDA
+    tensors; bit for bit the plain version's), the plain version
+    otherwise."""
+    fn = cell_band_lists_torch
+    if cfg.use_pallas:
+        from nbody_tpu_torch.ops.cuda import classify
+
+        fn = classify.cell_band_lists
+    return fn(tgt_subs, ss, supers, cells, cfg, skin=skin)
+
+
+def cell_band_lists_torch(tgt_subs: GroupInfo, ss: Supers, supers: Supers,
+                          cells, cfg: SimConfig, skin=0.0) -> CellBands:
     """Four-stage classification, chunked over target tiles.
 
     Stage 0 tests every super-super against the tile's sub-spheres (min

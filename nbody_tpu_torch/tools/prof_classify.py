@@ -1,7 +1,10 @@
 """Stage prefixes of the band classifier (port of tools/_prof_classify.py):
-which stage of forces.cell_band_lists costs the time at 1M?  A trimmed
-copy of the port's classifier that stops after a named stage, so the
-deltas between lines attribute its cost.
+which stage of the plain classifier, forces.cell_band_lists_torch, costs
+the time at 1M?  A trimmed copy of it that stops after a named stage, so
+the deltas between lines attribute its cost.  The card's production path
+is not this copy but the CUDA kernel (csrc/band_classify.cu, one launch a
+build, bit for bit the plain version's): its time and launches print
+beside the stages (on the CPU that line is the plain version itself).
 
     python -m nbody_tpu_torch.tools.prof_classify [n] [key=val ...]
         [--hot-state PATH] [--device cuda]
@@ -38,7 +41,8 @@ entries per row, live pieces, distinct windows before the cap, win_cnt.
 Each stage's time is the median of 6 calls after one (CUDA events around
 each call on the card, the host clock on the CPU); the JAX tool's relay
 subtraction has no counterpart.  Beside it, the aten ops the stage
-dispatches, views left out (each one kernel launch or more).
+dispatches, views left out (each one kernel launch or more); the
+production line counts its kernel launches too.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.models.simulation import Simulation
 from nbody_tpu_torch.ops import bbox, forces
 from nbody_tpu_torch.ops.cells import build_source_cells
+from nbody_tpu_torch.ops.cuda import classify
 from nbody_tpu_torch.ops.forces import SUB_FACTOR, _BIG, _BIG_F, _I64, \
     _norm3, _pieces, _row_compact_one, _window_masks, soft_term
 from nbody_tpu_torch.state import ParticleState
@@ -83,7 +88,7 @@ def upstream(state: ParticleState, cfg: SimConfig):
 
 def classify_until(upto: str, tgt_subs, ss, supers, cells,
                    cfg: SimConfig) -> torch.Tensor:
-    """forces.cell_band_lists (skin 0) up to stage `upto`: per-tile
+    """forces.cell_band_lists_torch (skin 0) up to stage `upto`: per-tile
     counts [T] ([T, 2] (cmid, near) at stage3 and compact3)."""
     dev = tgt_subs.center.device
     ss_cap, s_cap = cfg.ss_cap, cfg.sup_cap
@@ -236,7 +241,10 @@ def stage_times(state: ParticleState, cfg: SimConfig, stages=STAGES,
                 iters: int = 6) -> dict:
     """{"ms": {stage: median ms}, "ops": {stage: aten ops dispatched,
     views left out (common.op_count)}, "counts": {stage: per-tile
-    counts}}."""
+    counts}, "production": {"route", "launches", "ms", "ops"}}, the last
+    for the whole production classifier (forces.cell_band_lists: the
+    kernel on the card with cfg.use_pallas, else the plain version)
+    timed the same way, its launches counted over one call."""
     up = upstream(state, cfg)
     times, ops, counts = {}, {}, {}
     for s in stages:
@@ -246,12 +254,30 @@ def stage_times(state: ParticleState, cfg: SimConfig, stages=STAGES,
         counts[s] = fn()
         times[s] = common.device_times(fn, state.device, iters)["median_ms"]
         ops[s] = common.op_count(fn)
-    return {"ms": times, "ops": ops, "counts": counts}
+
+    def prod():
+        return forces.cell_band_lists(*up, cfg)
+
+    before = classify.LAUNCHES["band_classify"]
+    prod()
+    launches = classify.LAUNCHES["band_classify"] - before
+    production = {"route": "cuda" if launches else "plain",
+                  "launches": launches,
+                  "ms": common.device_times(prod, state.device,
+                                            iters)["median_ms"],
+                  "ops": common.op_count(prod)}
+    return {"ms": times, "ops": ops, "counts": counts,
+            "production": production}
 
 
 def report(r: dict) -> str:
-    return "\n".join(f"{k:10s} {v:8.2f} ms  {r['ops'][k]:5d} ops"
-                     for k, v in r["ms"].items())
+    lines = [f"{k:10s} {v:8.2f} ms  {r['ops'][k]:5d} ops"
+             for k, v in r["ms"].items()]
+    p = r["production"]
+    name = "kernel" if p["route"] == "cuda" else "plain"
+    lines.append(f"{name:10s} {p['ms']:8.2f} ms  {p['ops']:5d} ops  "
+                 f"{p['launches']} launch(es): the production classifier")
+    return "\n".join(lines)
 
 
 def main(argv=None) -> int:

@@ -189,7 +189,7 @@ def test_replayed_runner_counts_true_launches(replayed, case):
     counts, outs = {}, {}
     for graphed in (False, True):
         loops = {}
-        kern.reset_launches()
+        launch.reset()
         with bench.far_counter(torch.device("cuda")) as far:
             outs[graphed] = [tsim._run_adaptive(loops, tc, st, 13, graphed)
                              for _ in range(2)]
@@ -220,7 +220,7 @@ def test_replayed_step_counts_one_launch_each(replayed):
     _, tc = _pair(**dict(BASE, n=1000, use_pallas=True))
     st = _tstate(disk_galaxy_jax(tc.n, seed=3, g=tc.g))
     sim = tsim.Simulation(tc, device="cpu")
-    kern.reset_launches()
+    launch.reset()
     s1 = sim.step(st)
     s1_copy = tuple(x.clone() for x in s1)
     s2 = sim.step(s1)

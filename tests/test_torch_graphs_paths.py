@@ -26,6 +26,7 @@ from nbody_tpu_torch.convert import config_from_dict, state_from_numpy
 from nbody_tpu_torch.models import ensemble as tens
 from nbody_tpu_torch.models import simulation as tsim
 from nbody_tpu_torch.ops.cuda import forces as kern
+from nbody_tpu_torch.ops.cuda import launch
 
 from torch_graph_standin import replayed  # noqa: F401 (a fixture)
 
@@ -67,7 +68,7 @@ def _close(got, want, tol):
 
 def _counted(fn):
     """(fn(), the launches it counted)."""
-    kern.reset_launches()
+    launch.reset()
     out = fn()
     return out, dict(kern.LAUNCHES)
 

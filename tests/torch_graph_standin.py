@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from nbody_tpu_torch.ops import forces as tforces
-from nbody_tpu_torch.ops.cuda import forces as kern
+from nbody_tpu_torch.ops.cuda import classify, forces as kern
 from nbody_tpu_torch.ops.cuda import launch
 from nbody_tpu_torch.utils import graphs
 
@@ -52,15 +52,19 @@ def _record(self):
 @pytest.fixture
 def replayed(monkeypatch):
     """Every Graphed captures through the stand-ins, and the plain sweeps
-    count a launch per call as their kernels' wrappers do."""
+    and the plain classifier count a launch per call as their kernels'
+    wrappers do."""
     monkeypatch.setattr(graphs, "capturable", lambda device: True)
     monkeypatch.setattr(graphs.Graphed, "_warm_up", lambda self: self.run())
     monkeypatch.setattr(graphs.Graphed, "_record", _record)
-    for attr, name in (("far_sweep_torch", "far_sweep"),
-                       ("table_sweep_torch", "table_sweep"),
-                       ("near_correction_torch", "near_span")):
-        def counted(*a, _plain=getattr(tforces, attr), _name=name, **kw):
-            kern.LAUNCHES[_name] += 1
+    for attr, counts, name in (
+            ("far_sweep_torch", kern.LAUNCHES, "far_sweep"),
+            ("table_sweep_torch", kern.LAUNCHES, "table_sweep"),
+            ("near_correction_torch", kern.LAUNCHES, "near_span"),
+            ("cell_band_lists_torch", classify.LAUNCHES, "band_classify")):
+        def counted(*a, _plain=getattr(tforces, attr), _counts=counts,
+                    _name=name, **kw):
+            _counts[_name] += 1
             return _plain(*a, **kw)
 
         monkeypatch.setattr(tforces, attr, counted)
