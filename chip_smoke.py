@@ -413,7 +413,8 @@ def skinned_bands(cfg, state):
     (pos, mass, cells, ss, bands, tables, s_valid, k_next)."""
     rebuild, args = tool_common.first_rebuild(state, cfg)
     (pos, _, mass, _, _, _), (cells, ss, bands, tables, _), (
-        s_valid, k_next) = rebuild(*args)
+        s_valid, _) = rebuild(*args)
+    k_next = simulation.next_envelope(int(s_valid), cfg)
     return pos, mass, cells, ss, bands, tables, s_valid, k_next
 
 
@@ -656,18 +657,22 @@ def runner_phase(base, steps, chunk=32):
     sim = res["sim"]
     launches = main_launches()
     rebuilds = sim.n_rebuilds
+    grew = sim.counters()
     taken, state = res["drift_steps"], res["state"]
     log(f"[runner] v5_bench n={cfg.n}: {taken} steps in chunks of {chunk}, "
         f"{res['seconds']:.1f} s; avg {res['avg_steps_per_sec']:.3f} "
         f"steps/s, hot (last chunk) {res['hot_steps_per_sec']:.3f} steps/s")
     log(f"[runner] rebuilds {rebuilds} ({taken / rebuilds:.2f} steps per "
         f"rebuild), far+mid refreshes {launches['far_sweep']}; launches "
-        f"{launches}")
+        f"{launches}; builds redone {grew['builds_redone']} at grown caps "
+        f"({grew['cap_growths']} caps grown: {grew['caps']}, demand "
+        f"{grew['demand_max']})")
     verdict = "pass" if res["drift"] < DRIFT_CRITERION else "FAIL"
     log(f"[runner] energy drift {res['drift']:.6e} over {taken} steps "
         f"(E0 {res['e0']:.9e}, E1 {res['e1']:.9e}); 0.2% criterion: "
         f"{verdict} (not enforced); limit {DRIFT_LIMIT:.0%}")
-    check_runner_launches(launches, taken, rebuilds)
+    # a build redone at grown caps launches the classifier once more
+    check_runner_launches(launches, taken, rebuilds + grew["builds_redone"])
     check_finite("runner", state)
     if not res["drift"] < DRIFT_LIMIT:
         raise RuntimeError(f"energy drift {res['drift']} >= {DRIFT_LIMIT}")
@@ -762,6 +767,9 @@ def check_syncs(sim, ic, state, chunk):
     _, n = count_syncs(lambda: torch.ones(1, device=DEVICE).item())
     if n != 1:
         raise RuntimeError(f"sync debug mode counted {n} syncs for one .item()")
+    # a first chunk from `state` grows whatever caps it demands (a growth
+    # captures graphs, which synchronizes); the counted one replays
+    sim.run_scan(state, chunk)
     rb0 = sim.n_rebuilds
     _, n = count_syncs(lambda: sim.run_scan(state, chunk))
     rebuilds = sim.n_rebuilds - rb0
@@ -1772,12 +1780,13 @@ def cli_phase():
         res["launches_run"] = check_launches("cli run", json.loads(
             [l for l in done.stderr.splitlines()
              if l.startswith(tag)][-1][len(tag):]))
-        # band builds: the first step's, the run's (its counters) and
+        # band builds: the run's (its counters: the adaptive runner's,
+        # step 0's one-step run_scan included, and any per-step one) and
         # --diagnostics' one; a classifier launch each
         tag = "counters: "
         counters = json.loads([l for l in done.stderr.splitlines()
                                if l.startswith(tag)][-1][len(tag):])
-        builds = counters["builds"] + 2
+        builds = counters["builds"] + counters["step_builds"] + 1
         log(f"[cli run] {builds} band builds, "
             f"{res['launches_run']['band_classify']} classifier launches")
         if res["launches_run"]["band_classify"] != builds:
@@ -2395,13 +2404,16 @@ def far_edges_phase(cfg):
     return total
 
 
-# [classify]: the band classifier's kernel against its plain version.
-# The per-step rebuild's build at 100k, the 1M start state unskinned and
-# as the adaptive runner's first rebuild skins it, a uniform skin (the
-# sharded path's margin), the tools' config (force_tile 256, super-supers)
-# and small caps at 100k, where every overflow flag and the window cap's
-# whole-child drop fire (ss_cap 4: at 8 the 100k state's super-super lists
-# stay whole).
+# [classify]: the band classifier's kernel against its plain version, its
+# demand (forces.BAND_DEMAND) too.  The per-step rebuild's build at 100k,
+# the 1M start state unskinned and as the adaptive runner's first rebuild
+# skins it, a uniform skin (the sharded path's margin), the tools' config
+# (force_tile 256, super-supers), small caps at 100k, where every overflow
+# flag and the window cap's whole-child drop fire (ss_cap 4: at 8 the 100k
+# state's super-super lists stay whole), and the lonestar_bh Plummer
+# sphere's first rebuild at the default caps (which it overflows) and at
+# the caps the adaptive loop grows them to (grown_config until a build
+# fits).
 CLASSIFY_SMALL_CAPS = dict(no_ss=False, ss_cap=4, sup_cap=16, mid_cap=16,
                            cmid_cap=16, near_cap=16, win_cap=8)
 CLASSIFY_SEED = 1
@@ -2445,6 +2457,15 @@ def first_rebuild_build(cfg, state):
     """The adaptive runner's first rebuild at `state` (skins for K steps)."""
     rebuild, args = tool_common.first_rebuild(state, cfg)
     return lambda: rebuild(*args)
+
+
+def grown_first_rebuild(cfg, state):
+    """The config the adaptive loop grows cfg to at its first rebuild at
+    `state` (one step of run_scan), and that Simulation's counters."""
+    sim = Simulation(cfg, device=DEVICE)
+    sim.run_scan(state, 1)
+    (loop,) = sim._loops.values()
+    return loop.cfg, sim.counters()
 
 
 def bands_diff(label, got, want):
@@ -2503,7 +2524,7 @@ def classify_phase():
     version in each case, one launch a call; its time beside the plain
     version's and its bound at both benchmark cells' shapes.  Returns the
     kernel JSON row (main adds its launches)."""
-    from nbody_tpu_torch.init import disk_galaxy_msvc
+    from nbody_tpu_torch.init import disk_galaxy_msvc, plummer_henon
 
     base = PRESETS["v5_bench"].replace(check_overflow=False)
     c1m = base.replace(n=CLASSIFY_N[0])
@@ -2512,6 +2533,12 @@ def classify_phase():
     s100k = disk_galaxy_msvc(c100k.n, CLASSIFY_SEED, c100k.g, device=DEVICE)
     tools_cfg = prof_classify.make_config(c1m.n)
     small = c100k.replace(**CLASSIFY_SMALL_CAPS)
+    plum = PRESETS["lonestar_bh"].replace(check_overflow=False)
+    s_plum = plummer_henon(plum.n, CLASSIFY_SEED, plum.g, device=DEVICE)
+    plum_grown, grew = grown_first_rebuild(plum, s_plum)
+    log(f"[classify Plummer] the first rebuild grew {grew['cap_growths']} "
+        f"caps in {grew['builds_redone']} redone builds: caps "
+        f"{grew['caps']}, demand {grew['demand_max']}")
     inputs = {
         "100k start state (per-step build)": classifier_inputs(
             per_step_build(c100k, s100k)),
@@ -2523,6 +2550,10 @@ def classify_phase():
             classifier_inputs(first_rebuild_build(
                 tools_cfg.replace(rebuild_every=16), s1m)),
         "100k small caps": classifier_inputs(per_step_build(small, s100k)),
+        "1M Plummer first rebuild, default caps": classifier_inputs(
+            first_rebuild_build(plum, s_plum)),
+        "1M Plummer first rebuild, grown caps": classifier_inputs(
+            first_rebuild_build(plum_grown, s_plum)),
     }
     a, kw = inputs["1M start state (unskinned)"]
     sk = 2.0 * float(inputs["1M first rebuild (adaptive_drift skins)"][0][0]
@@ -2531,13 +2562,20 @@ def classify_phase():
     res = {}
     for label, (a, kw) in inputs.items():
         klaunch.reset()
-        got = classify.cell_band_lists(*a, **kw)
-        want = forces.cell_band_lists_torch(*a, **kw)
+        dg, dw = (torch.zeros(len(forces.BAND_DEMAND), dtype=torch.int32,
+                              device=DEVICE) for _ in range(2))
+        kw = {k: v for k, v in kw.items() if k != "demand"}
+        got = classify.cell_band_lists(*a, **kw, demand=dg)
+        want = forces.cell_band_lists_torch(*a, **kw, demand=dw)
         sync()
         if classify.LAUNCHES["band_classify"] != 1:
             raise RuntimeError(f"[classify {label}] launches "
                                f"{classify.LAUNCHES}")
         bands_diff(label, got, want)
+        demand = dict(zip(forces.BAND_DEMAND, dg.tolist()))
+        if not torch.equal(dg, dw):
+            raise RuntimeError(f"[classify {label}] demand: kernel {demand}, "
+                               f"plain {dw.tolist()}")
         flags = [bool(f) for f in got[13:]]
         means = {f: float(getattr(got, f).float().mean()) for f in (
             "ss_cnt", "sup_cnt", "mid_cnt", "cmid_cnt", "near_cnt",
@@ -2545,12 +2583,18 @@ def classify_phase():
         log(f"[classify {label}] bit for bit ({len(got)} arrays); tiles "
             f"{got.ss_cnt.shape[0]}, skin {kw.get('skin', 0.0)}, mean live "
             + ", ".join(f"{k[:-4]} {v:.1f}" for k, v in means.items())
-            + f"; overflow {dict(zip(('ss', 'sup', 'mid', 'cmid', 'near'), flags))}")
+            + f"; overflow {dict(zip(('ss', 'sup', 'mid', 'cmid', 'near'), flags))}"
+            + f"; demand {demand} (the same)")
         res[label] = dict(means=means, flags=flags)
     a, kw = inputs["100k small caps"]
     if not all(res["100k small caps"]["flags"]):
         raise RuntimeError("[classify] small caps: not every overflow flag "
                            "fired")
+    if (not any(res["1M Plummer first rebuild, default caps"]["flags"])
+            or any(res["1M Plummer first rebuild, grown caps"]["flags"])):
+        raise RuntimeError("[classify] the Plummer sphere's flags: "
+                           f"{res['1M Plummer first rebuild, default caps']}, "
+                           f"grown {res['1M Plummer first rebuild, grown caps']}")
     wide = forces.cell_band_lists_torch(*a[:4], a[4].replace(win_cap=80),
                                         **kw)
     small_bands = classify.cell_band_lists(*a, **kw)

@@ -3,7 +3,11 @@
 A field-for-field copy of ``nbody_tpu.config.SimConfig`` and ``PRESETS``
 (the port imports nothing of ``nbody_tpu``).  Field names, defaults, the
 derived sizes and the ``__post_init__`` checks are the same, so a config
-carries across with ``nbody_tpu_torch.convert.config_from_dict``.
+carries across with ``nbody_tpu_torch.convert.config_from_dict``.  The
+port adds what the JAX package lacks: the field ``band_budget_gib`` (the
+ceiling of the adaptive runner's cap growth, ``models/simulation``), the
+size it bounds (``band_bytes``), the ``plummer`` initial conditions and
+the preset ``lonestar_bh``.
 
 ``use_pallas`` keeps its name for that reason and means "hand kernels on":
 the three force sweeps run as the CUDA kernels of ``ops/cuda/forces.py``
@@ -71,7 +75,7 @@ class SimConfig:
     # --- initial conditions ---
     seed: int = 42
     ic_kind: str = "disk_galaxy"   # "disk_galaxy" | "legacy_disk" |
-                                   # "uniform_cube"
+                                   # "uniform_cube" | "plummer"
     ic_rng: str = "msvc_rand"      # "msvc_rand" (bit-exact C rand()) |
                                    # "jax" (the port's torch.Generator)
     # --- parallelism ---
@@ -85,6 +89,10 @@ class SimConfig:
     cam_rot_x: float = 30.0
     cam_rot_y: float = 45.0
     fov_deg: float = 45.0
+    # --- port only ---
+    band_budget_gib: float = 16.0  # device memory the band and cell tables
+                                   # (band_bytes) may grow to when the
+                                   # adaptive runner grows overflowed caps
 
     def __post_init__(self):
         if self.n <= 0:
@@ -148,8 +156,27 @@ class SimConfig:
         )
         return 4 * 4 * self.n_groups * rows
 
+    @property
+    def band_bytes(self) -> int:
+        """Device memory of one band build's outputs at the caps, the size
+        band_budget_gib bounds: the tables (table_bytes), the five band
+        lists and the near windows (int32; a window takes 5 words), and
+        the adaptive cells (SourceCells: ~1.5 KB a cell slot) with their
+        grandchild segments (44 B each)."""
+        lists = 4 * self.n_groups * (
+            self.ss_cap + self.sup_cap + self.mid_cap + self.cmid_cap
+            + self.near_cap + 5 * self.win_cap_eff)
+        g2 = min(self.g2_cap_factor, 8) * 8 * self.cell_capacity
+        return self.table_bytes + lists + 1512 * self.cell_capacity + 44 * g2
+
     def replace(self, **kw) -> "SimConfig":
         return dataclasses.replace(self, **kw)
+
+
+# the fields of the port's SimConfig that the JAX package's lacks (the
+# last ones), left out when a config is carried across
+# (convert.config_to_dict)
+PORT_ONLY = ("band_budget_gib",)
 
 
 PRESETS = {
@@ -176,4 +203,13 @@ PRESETS = {
                             rebuild_every=8, hold_farmid=4, sup_cap=384,
                             mid_cap=512, cmid_cap=768, near_cap=1536,
                             g2_cap_factor=6),
+    # LonestarGPU's bh (Burtscher & Pingali 2011) at N = 1M: the SPLASH-2
+    # Plummer sphere in Henon units, theta 0.5, eps^2 0.0025 on d^2, dt
+    # 0.025, no speed clamp, fresh far+mid every step; the v5_bench tile,
+    # structure and skin knobs, the default caps as starting sizes
+    "lonestar_bh": SimConfig(n=1_000_000, g=1.0, theta=0.5, dt=0.025,
+                             softening=0.0025, legacy_softening=False,
+                             clamp_speed=False, hold_farmid=1,
+                             force_tile=512, no_ss=True, rebuild_every=16,
+                             adaptive_rebuild=True, ic_kind="plummer"),
 }

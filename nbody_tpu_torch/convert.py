@@ -1,8 +1,9 @@
 """Carry particle state and configs across from the JAX package's data.
 
 State goes through numpy (the neutral format both packages read), and a
-config through ``dataclasses.asdict`` of ``nbody_tpu.config.SimConfig``,
-so the port imports nothing of the JAX package.
+config through ``dataclasses.asdict`` of ``nbody_tpu.config.SimConfig``
+(and back through ``config_to_dict``), so the port imports nothing of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from nbody_tpu_torch.config import SimConfig
+from nbody_tpu_torch.config import PORT_ONLY, SimConfig
 from nbody_tpu_torch.state import ParticleState
 
 
@@ -40,3 +41,10 @@ def config_from_dict(d: Dict) -> SimConfig:
     if "mesh_shape" in kw:
         kw["mesh_shape"] = tuple(kw["mesh_shape"])
     return SimConfig(**kw)
+
+
+def config_to_dict(cfg: SimConfig) -> Dict:
+    """The fields of `cfg` that the JAX package's config has (all but
+    config.PORT_ONLY), for ``nbody_tpu.config.SimConfig(**...)``."""
+    return {k: v for k, v in dataclasses.asdict(cfg).items()
+            if k not in PORT_ONLY}

@@ -9,7 +9,9 @@
 // PyTorch port does the same.  On the card that is some 3,000 small
 // kernels a build at 1M bodies (about 15 GB of panels written and read)
 // and some 350 at 100k, most of a rebuild's device time.  This kernel
-// computes the same 13 arrays and 5 overflow flags, bit for bit.
+// computes the same 13 arrays and 5 overflow flags, bit for bit, and the
+// demanded length of each list, the longest over tiles, as the plain
+// version's `demand`.
 //
 // Bound.  One block a target tile.  At 1M (1,954 tiles) a tile tests about
 // 19k (sub-sphere, source) pairs, 8 x (154 super-supers + 8 x (109 + 86 +
@@ -39,8 +41,14 @@
 //     win_cap or above dropped whole (its lane words left out, its
 //     anti-row cut from near_idx);
 //   * the lists, windows and counts live in shared memory (~17 KB at the
-//     default caps) and are written out once, padded as the plain version
-//     pads them.
+//     default caps, 4 B an entry of ss, sup, mid and near and 20 B a
+//     window; the opt-in limit, 227 KB, bounds the caps that can grow)
+//     and are written out once, padded as the plain version pads them.
+//     A near list longer than kNearSmem entries (a dense core's grown
+//     cap) is built in its output row instead, as the cmid list always
+//     is, and padded there;
+//   * each list's raw count, and the near children's distinct windows, are
+//     the tile's demand: one atomicMax a list into the build's `demand`.
 //
 // Numerics: every float operation of the MAC tests is the plain version's,
 // in its order, as an __f*_rn intrinsic (no contraction): |d| summed left
@@ -61,6 +69,9 @@ constexpr int kSpan = 128;        // window width (forces.SPAN_ALIGN)
 constexpr int kBig = 2147483646;  // absent key (forces._BIG)
 constexpr float kBigF = 3.0e38f;  // forces._BIG_F
 constexpr unsigned kFull = 0xffffffffu;
+// the longest near list kept in shared memory (ops/cuda/classify.py's
+// NEAR_SMEM); a longer one is built in global memory, in its output row
+constexpr int kNearSmem = 8192;
 
 }  // namespace
 
@@ -97,7 +108,8 @@ struct ClassifyArgs {
   // grandchildren [g_cap * 64]
   const float* gkid_com;
   const float* gkid_gmass;
-  // outputs (int32; flags bool [5], zeroed by the caller)
+  // outputs (int32; flags bool [5] and demand int32 [6], zeroed by the
+  // caller)
   int* ss_idx;
   int* ss_cnt;
   int* sup_idx;
@@ -112,6 +124,7 @@ struct ClassifyArgs {
   int* win_mask;
   int* win_cnt;
   uint8_t* flags;
+  int* demand;  // ss, sup, mid, cmid, near, windows (forces.BAND_DEMAND)
   int tiles, n_ss, n_sup, g_cap;
   int ss_cap, sup_cap, mid_cap, cmid_cap, near_cap, win_cap, pieces;
   float half, soft, theta;
@@ -247,12 +260,15 @@ __global__ void __launch_bounds__(kThreads)
   int* s_ss = smem;
   int* s_sup = s_ss + a.ss_cap;
   int* s_mid = s_sup + a.sup_cap;
-  int* s_near = s_mid + a.mid_cap;
-  int* s_wkey = s_near + a.near_cap;
+  const bool near_smem = a.near_cap <= kNearSmem;
+  int* s_near = near_smem ? s_mid + a.mid_cap
+                          : a.near_idx + (size_t)blockIdx.x * a.near_cap;
+  int* s_wkey = s_mid + a.mid_cap + (near_smem ? a.near_cap : 0);
   unsigned* s_wacc = reinterpret_cast<unsigned*>(s_wkey + a.win_cap);
   __shared__ float s_c[3][kSub], s_rt[kSub];
   __shared__ int s_wc[2][kWarps];
-  __shared__ int s_scan[3];  // live windows, kept children, any dropped
+  __shared__ int s_scan[4];  // live windows, kept children, any dropped,
+                             // distinct windows (demanded)
 
   const int t = blockIdx.x, tid = threadIdx.x;
   const float half = a.half, soft = a.soft, theta = a.theta;
@@ -359,7 +375,7 @@ __global__ void __launch_bounds__(kThreads)
   if (tid < 32) {
     const int lane = tid, pieces = a.pieces;
     long long carry = kBig;  // the previous child's last piece key
-    int rank_base = -1, kept = 0, live = 0;
+    int rank_base = -1, kept = 0, live = 0, wanted = 0;
     bool dropped = false;
     for (int k0 = 0; k0 < nn; k0 += 32) {
       const int k = k0 + lane;
@@ -377,14 +393,17 @@ __global__ void __launch_bounds__(kThreads)
       long long prev = __shfl_up_sync(kFull, last, 1);
       if (lane == 0) prev = carry;
       // boundaries among this child's pieces, the first against `prev`
-      int nb = 0;
+      int nb = 0, nw = 0;
       long long pk = prev;
       for (int j = 0; j < pieces; ++j) {
         const long long key = piece_key(w, end, cnt, key_last, j);
-        nb += (k == 0 && j == 0) || key != pk;
+        const bool bnd = (k == 0 && j == 0) || key != pk;
+        nb += bnd;
+        nw += bnd && key < kBig;
         pk = key;
       }
-      if (!on) nb = 0;
+      if (!on) nb = nw = 0;
+      wanted += nw;
       int incl = nb;
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
@@ -425,10 +444,12 @@ __global__ void __launch_bounds__(kThreads)
       carry = __shfl_sync(kFull, last, min(31, nn - 1 - k0));
     }
     live = __reduce_add_sync(kFull, live);
+    wanted = __reduce_add_sync(kFull, wanted);
     if (lane == 0) {
       s_scan[0] = live;
       s_scan[1] = kept;
       s_scan[2] = dropped;
+      s_scan[3] = wanted;
     }
   }
   __syncthreads();
@@ -466,6 +487,12 @@ __global__ void __launch_bounds__(kThreads)
     if (n_mid > a.mid_cap) a.flags[2] = 1;
     if (n_cmid > a.cmid_cap) a.flags[3] = 1;
     if (n_near > a.near_cap || s_scan[2]) a.flags[4] = 1;
+    atomicMax(a.demand + 0, n_ss);
+    atomicMax(a.demand + 1, n_sup);
+    atomicMax(a.demand + 2, n_mid);
+    atomicMax(a.demand + 3, n_cmid);
+    atomicMax(a.demand + 4, n_near);
+    atomicMax(a.demand + 5, s_scan[3]);
   }
 }
 
@@ -482,7 +509,9 @@ int nbody_band_classify(const ClassifyArgs* args, void* stream) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = sizeof(int) * ((size_t)a.ss_cap + a.sup_cap +
-                                     a.mid_cap + a.near_cap + 5 * a.win_cap);
+                                     a.mid_cap + 5 * a.win_cap +
+                                     (a.near_cap <= kNearSmem ? a.near_cap
+                                                               : 0));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         band_classify_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

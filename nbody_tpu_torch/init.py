@@ -5,7 +5,9 @@ bit-exact MSVC ``rand()`` stream after ``srand(seed)``, in float32 numpy,
 so the port starts from the same particle cloud as the reference binaries
 and as ``nbody_tpu``.  The other generators draw from a seeded
 ``torch.Generator`` on the target device: same distributions as the JAX
-package's ``jax.random`` versions, different numbers.  Every generator
+package's ``jax.random`` versions, different numbers; `plummer_henon`,
+which the JAX package lacks, draws on the CPU so that its numbers do not
+depend on the device.  Every generator
 builds its state on CUDA unless `device` names another device, and
 raises when no CUDA device is present (``state.default_device``).
 """
@@ -119,6 +121,80 @@ def uniform_cube(n: int, seed: int = 0, half: float = 1000.0,
     return ParticleState.create(pos, torch.zeros_like(pos), mass)
 
 
+# Plummer sphere in Henon units (SPLASH-2 barnes / LonestarGPU bh)
+_PLUMMER_RSC = 3.0 * np.pi / 16.0      # radius scale
+_PLUMMER_CUT = 0.999                   # mass fraction the radii stop at
+_PLUMMER_BOX = 0.1                     # height of the speeds' rejection box
+
+
+def _rejected(n: int, gen: torch.Generator, width: int, accept):
+    """n rows of `width` uniforms in [0, 1) that pass `accept` (a row
+    test), drawn in rounds of one candidate for each row still
+    unassigned, in row order."""
+    out = torch.empty((n, width), dtype=torch.float64)
+    todo = torch.arange(n)
+    while todo.numel():
+        cand = torch.rand((todo.numel(), width), generator=gen,
+                          dtype=torch.float64)
+        ok = accept(cand)
+        out[todo[ok]] = cand[ok]
+        todo = todo[~ok]
+    return out
+
+
+def _ball_directions(n: int, gen: torch.Generator) -> torch.Tensor:
+    """n unit vectors: points of the cube [-1, 1)^3 kept inside the unit
+    ball, scaled to length 1."""
+    def inside(c):
+        x = 2.0 * c - 1.0
+        return (x * x).sum(dim=1) <= 1.0
+
+    x = 2.0 * _rejected(n, gen, 3, inside) - 1.0
+    return x / torch.sqrt((x * x).sum(dim=1, keepdim=True))
+
+
+def plummer_henon(n: int, seed: int = 42, g: float = 1.0,
+                  device=None) -> ParticleState:
+    """The Plummer sphere of SPLASH-2's barnes as LonestarGPU's bh makes
+    its input (Burtscher & Pingali, "An Efficient CUDA Implementation of
+    the Tree-Based Barnes Hut n-Body Algorithm", GPU Computing Gems
+    Emerald Edition ch. 6, 2011), in Henon units (G M = 1):
+
+      masses 1/N; radius scale rsc = 3 pi / 16, velocity scale vsc =
+      sqrt(1 / rsc);
+      r = 1 / sqrt((0.999 u)^(-2/3) - 1), u uniform in [0, 1) (radii
+      from a mass fraction below 0.999), the position rsc r along a
+      direction drawn by rejection from the cube [-1, 1)^3 into the unit
+      ball;
+      a speed fraction q by rejection from q^2 (1 - q^2)^3.5 in the box
+      [0, 1) x [0, 0.1), the speed vsc q sqrt(2) (1 + r^2)^(-1/4), along
+      a second such direction.
+
+    No centre-of-mass shift: the source makes none.  Velocities scale by
+    sqrt(g) for a G other than 1.  Every draw comes, in that order, from
+    one CPU torch.Generator seeded with `seed`, in float64, rounded to
+    float32 at the end, so a seed gives the same bodies on every
+    device."""
+    gen = torch.Generator().manual_seed(seed)
+    f64 = torch.float64
+    u = torch.rand(n, generator=gen, dtype=f64)
+    r = 1.0 / torch.sqrt((_PLUMMER_CUT * u) ** (-2.0 / 3.0) - 1.0)
+    pos = (_PLUMMER_RSC * r)[:, None] * _ball_directions(n, gen)
+
+    def under_g(c):
+        x, y = c[:, 0], c[:, 1] * _PLUMMER_BOX
+        return y <= x * x * (1.0 - x * x) ** 3.5
+
+    q = _rejected(n, gen, 2, under_g)[:, 0]
+    vsc = np.sqrt(g / _PLUMMER_RSC)
+    speed = vsc * q * torch.sqrt(2.0 / torch.sqrt(1.0 + r * r))
+    vel = speed[:, None] * _ball_directions(n, gen)
+    mass = torch.full((n,), 1.0 / n, dtype=f64)
+    return ParticleState.create(pos.to(torch.float32), vel.to(torch.float32),
+                                mass.to(torch.float32),
+                                device=default_device(device))
+
+
 def make_initial_state(cfg: SimConfig, device=None) -> ParticleState:
     """Dispatch on cfg.ic_kind / cfg.ic_rng ("jax" selects the device
     generator, the port's counterpart of the jax.random stream)."""
@@ -130,4 +206,6 @@ def make_initial_state(cfg: SimConfig, device=None) -> ParticleState:
         return legacy_disk(cfg.n, cfg.seed, device=device)
     if cfg.ic_kind == "uniform_cube":
         return uniform_cube(cfg.n, cfg.seed, device=device)
+    if cfg.ic_kind == "plummer":
+        return plummer_henon(cfg.n, cfg.seed, cfg.g, device=device)
     raise ValueError(f"unknown ic_kind: {cfg.ic_kind}")

@@ -27,6 +27,16 @@ over buffers they own: the counterpart of the JAX package's one jitted
 program, with no per-kernel launch from the host.  The host keeps the
 schedule as integers and replays the graph each rebuild, cycle or step
 needs.
+
+Band caps: every band build reports, beside its overflow flags
+(BUILD_FLAGS), what it demands of each capacity (DEMANDS).  The adaptive
+loop reads both with its validity horizon, and a build with a flag set is
+never swept: the loop grows the flagged caps (grown_config, within
+cfg.band_budget_gib), captures its graphs again and redoes the build, so
+no pair is dropped.  The caps it grew to last for the loop's life.  The
+per-step rebuild and the fixed-K cycles keep their caps; `Simulation.run`
+reads their flags at each frame's sync and raises on a build that dropped
+pairs.
 """
 
 from __future__ import annotations
@@ -39,7 +49,8 @@ import torch
 from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.state import ParticleState, default_device
 from nbody_tpu_torch.ops import bbox, morton, forces, integrate as integ
-from nbody_tpu_torch.ops.cells import build_source_cells
+from nbody_tpu_torch.ops.cells import (CELL_DEMAND, build_source_cells,
+                                       capacity_demand)
 from nbody_tpu_torch.ops.tree import build_tree
 from nbody_tpu_torch.utils.graphs import Graphed, capturable
 from nbody_tpu_torch.utils.profiling import span
@@ -59,9 +70,10 @@ def compute_bh_acc(pos: torch.Tensor, mass: torch.Tensor, cfg: SimConfig,
     """Barnes-Hut accelerations in the particles' original order.
 
     force_fn: "tiled" (the production band decomposition, hand kernels
-    when cfg.use_pallas) or "reference" (the per-particle rope walk over
-    the escape-linearised tree; `stats` collects its iteration and
-    host-read counts)."""
+    when cfg.use_pallas; `stats` receives its build's flags and demand,
+    build_report, under "report") or "reference" (the per-particle rope
+    walk over the escape-linearised tree; `stats` collects its iteration
+    and host-read counts)."""
     if force_fn not in ("tiled", "reference"):
         raise ValueError(f"unknown force_fn {force_fn}")
     n = pos.shape[0]
@@ -70,7 +82,17 @@ def compute_bh_acc(pos: torch.Tensor, mass: torch.Tensor, cfg: SimConfig,
     if force_fn == "tiled":
         pos_p, mass_p, codes_p = forces.pad_sorted(pos_s, mass_s, codes_s,
                                                    cfg.force_tile)
-        acc_s = forces.bh_forces_grouped(pos_p, mass_p, codes_p, cfg)[:n]
+        if stats is None:
+            acc_s = forces.bh_forces_grouped(pos_p, mass_p, codes_p, cfg)[:n]
+        else:
+            demand = torch.zeros(len(forces.BAND_DEMAND), dtype=torch.int32,
+                                 device=pos.device)
+            cells, ss, bands, tables = forces.build_bands(
+                pos_p, mass_p, codes_p, cfg, demand=demand)
+            stats["report"] = build_report(build_flags(cells, bands), cells,
+                                           demand)
+            acc_s = forces.apply_bands(pos_p, mass_p, ss, bands, tables,
+                                       cfg)[:n]
     else:
         # the tree is 30-bit; a 63-bit key's top 30 bits are a prefix of
         # it, so the sorted order holds for the truncated codes
@@ -203,14 +225,29 @@ def k_next_of(k_env: torch.Tensor, s_valid: torch.Tensor,
               overflowed: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
     """The next envelope horizon, ~2 s_valid (calm epochs grow back to K
     in a few rebuilds), halved instead when this build's skins overflowed
-    any band cap (a standing theta violation for the overflowed pairs)."""
+    any band cap (a standing theta violation for the overflowed pairs).
+    The sharded runner's feedback; the single-device adaptive loop never
+    sweeps an overflowed build, and takes the first branch on the host."""
     return torch.where(overflowed, torch.clamp(k_env // 2, min=1),
                        torch.clamp(2 * s_valid, 1, cfg.rebuild_every))
+
+
+def next_envelope(s_valid: int, cfg: SimConfig) -> int:
+    """The adaptive loop's next envelope horizon, on the host: k_next_of
+    for a build that fits its caps, clip(2 s_valid, 1, K)."""
+    return min(max(2 * s_valid, 1), cfg.rebuild_every)
 
 
 # the seven overflow flags of a band build, in the order of build_flags:
 # the five band lists', the adaptive cells' and the grandchild segments'
 BUILD_FLAGS = ("ss", "sup", "mid", "cmid", "near", "cells", "g2")
+# what a band build demands of each capacity, in the order of
+# build_report: the band lists and near windows (forces.BAND_DEMAND), the
+# cell slots and the grandchild segments (cells.CELL_DEMAND)
+DEMANDS = forces.BAND_DEMAND + CELL_DEMAND
+# the flags of a build that swept coarser monopoles in place of what it
+# dropped (a grandchild overflow only sends children to exact P2P)
+_DROPPING = BUILD_FLAGS[:6]
 
 
 def _band_flags(bands) -> list:
@@ -229,12 +266,97 @@ def build_flags(cells, bands) -> torch.Tensor:
                                              cells.overflow_g2])
 
 
-def _count_overflows(counts: torch.Tensor, flags: torch.Tensor) -> None:
-    """Add one build's flags (build_flags), and whether any is set, to a
-    loop's device int64 [8] counts in place: inside a captured graph, so
+def build_report(flags: torch.Tensor, cells,
+                 band_demand: torch.Tensor) -> torch.Tensor:
+    """One band build's flags (build_flags) and demand, int64 [15]:
+    BUILD_FLAGS as 0 or 1, then DEMANDS (`band_demand` is the int32 [6]
+    that build_bands filled)."""
+    return torch.cat([flags.to(torch.int64), band_demand.to(torch.int64),
+                      capacity_demand(cells)])
+
+
+def _count_build(counts: torch.Tensor, report: torch.Tensor) -> None:
+    """Add one build's report (build_report) to a device int64 [16] tally
+    in place: [0:7] the builds with each flag set, [7] those with any set,
+    [8:16] the largest demand of each kind.  Inside a captured graph, so
     that every replay counts with no host read."""
-    counts[:-1].add_(flags)
-    counts[-1:].add_(flags.any())
+    flags = report[:len(BUILD_FLAGS)]
+    counts[:len(BUILD_FLAGS)].add_(flags)
+    counts[len(BUILD_FLAGS):len(BUILD_FLAGS) + 1].add_(flags.amax())
+    torch.maximum(counts[len(BUILD_FLAGS) + 1:], report[len(BUILD_FLAGS):],
+                  out=counts[len(BUILD_FLAGS) + 1:])
+
+
+def _new_tally(device) -> torch.Tensor:
+    return torch.zeros(len(BUILD_FLAGS) + 1 + len(DEMANDS), dtype=torch.int64,
+                       device=device)
+
+
+def _round_cap(demand: int) -> int:
+    """A grown capacity: the power of two at or above `demand`, at least
+    64.  Doubling keeps the growths of a long run few, and a capacity
+    sets the width every later build gathers and writes, so the states
+    of one configuration share a few widths instead of one each."""
+    return max(64, 1 << (max(demand, 1) - 1).bit_length())
+
+
+def caps_in_force(cfg: SimConfig) -> dict:
+    """The capacities a build of cfg has, by DEMANDS name: the list caps,
+    the near window slots, the cell slots and the grandchild segments."""
+    return {"ss": cfg.ss_cap, "sup": cfg.sup_cap, "mid": cfg.mid_cap,
+            "cmid": cfg.cmid_cap, "near": cfg.near_cap,
+            "win": cfg.win_cap_eff, "cells": cfg.cell_capacity,
+            "g2": min(cfg.g2_cap_factor, 8) * 8 * cfg.cell_capacity}
+
+
+def grown_config(cfg: SimConfig, flags, demand) -> SimConfig:
+    """cfg with each flagged capacity (BUILD_FLAGS, 0 or 1) grown to the
+    power of two at or above its demand (DEMANDS; _round_cap); a near
+    flag grows whichever of the near list and its windows is past its
+    cap.  Caps never shrink.  Raises when the grown band and cell
+    tables (SimConfig.band_bytes) pass cfg.band_budget_gib, or the
+    classifier kernel's lists its shared memory, naming the demanded
+    caps."""
+    f = dict(zip(BUILD_FLAGS, flags))
+    d = dict(zip(DEMANDS, demand))
+    kw = {}
+    for name in ("ss", "sup", "mid", "cmid", "near"):
+        cap = getattr(cfg, f"{name}_cap")
+        if f[name] and d[name] > cap:
+            kw[f"{name}_cap"] = max(cap, _round_cap(d[name]))
+    if f["near"] and d["win"] > cfg.win_cap_eff:
+        kw["win_cap"] = max(cfg.win_cap, _round_cap(d["win"]))
+    if f["cells"]:
+        need = _round_cap(d["cells"])
+        kw["cell_cap_factor"] = max(cfg.cell_cap_factor,
+                                    -(-(need - 64) // cfg.n_groups))
+    grown = cfg.replace(**kw)
+    if f["g2"] or f["cells"]:
+        c_cap = 8 * grown.cell_capacity
+        g2 = max(cfg.g2_cap_factor, -(-d["g2"] // c_cap))
+        if g2 != cfg.g2_cap_factor:
+            grown = grown.replace(g2_cap_factor=min(g2, 8))
+    if grown == cfg:
+        raise RuntimeError(f"a band build overflowed {f} with demand {d}, "
+                           f"which the caps in force {caps_in_force(cfg)} "
+                           "hold: no cap to grow")
+    wanted = ", ".join(f"{k}={v}" for k, v in caps_in_force(grown).items()
+                       if v != caps_in_force(cfg)[k])
+    budget = cfg.band_budget_gib * 2**30
+    if grown.band_bytes > budget:
+        raise RuntimeError(
+            f"band caps demanded past band_budget_gib={cfg.band_budget_gib}: "
+            f"{wanted} take {grown.band_bytes / 2**30:.3f} GiB of band and "
+            "cell tables; raise band_budget_gib or lower theta")
+    if grown.use_pallas:
+        from nbody_tpu_torch.ops.cuda import classify
+
+        if classify.smem_bytes(grown) > classify.SMEM_LIMIT:
+            raise RuntimeError(
+                f"band caps demanded past the classifier kernel's shared "
+                f"memory: {wanted} take {classify.smem_bytes(grown)} B of "
+                f"{classify.SMEM_LIMIT}")
+    return grown
 
 
 def _adaptive_rebuild_fn(cfg: SimConfig):
@@ -244,11 +366,12 @@ def _adaptive_rebuild_fn(cfg: SimConfig):
     validity horizon and envelope feedback.
 
     rebuild(pos, vel, mass, acc, orig, k_env, afm=None) returns
-    (fields, built, (s_valid, k_next)) with fields = (pos, vel, mass,
+    (fields, built, (s_valid, report)) with fields = (pos, vel, mass,
     acc, orig, afm) in the new order (afm None when not given), built =
     (cells, supers, bands, tables, rctx), build_bands' four results and
-    what refresh_farmid needs, and two device scalars: the validity
-    horizon and the next envelope horizon (k_next_of)."""
+    what refresh_farmid needs, the validity horizon (a device int64
+    scalar) and the build's flags and demand (build_report).  It writes
+    nothing back: the caller picks the next envelope horizon."""
 
     def rebuild(pos, vel, mass, acc, orig, k_env, afm=None):
         codes_s, perm, box_lo, size = sort_by_morton(pos, cfg)
@@ -259,14 +382,17 @@ def _adaptive_rebuild_fn(cfg: SimConfig):
         v, a = _norms(vel), _norms(acc)
         drift = adaptive_drift(v, a, codes_s, size, cfg,
                                k=k_env.to(torch.float32))
-        cells, supers, bands, tables = forces.build_bands(pos, mass, codes_s,
-                                                          cfg, drift=drift)
+        demand = torch.zeros(len(forces.BAND_DEMAND), dtype=torch.int32,
+                             device=pos.device)
+        cells, supers, bands, tables = forces.build_bands(
+            pos, mass, codes_s, cfg, drift=drift, demand=demand)
         s_valid = validity_horizon(v, a, drift, cfg)
-        k_next = k_next_of(k_env, s_valid, bands_overflowed(bands), cfg)
         # what refresh_farmid needs to recompute moments at this cut
         rctx = (codes_s, drift, box_lo, size)
         return ((pos, vel, mass, acc, orig, afm),
-                (cells, supers, bands, tables, rctx), (s_valid, k_next))
+                (cells, supers, bands, tables, rctx),
+                (s_valid, build_report(build_flags(cells, bands), cells,
+                                       demand)))
 
     return rebuild
 
@@ -312,13 +438,23 @@ class _AdaptiveLoop(_PaddedLoop):
     """The adaptive schedule as a host loop, one `step()` per step.
 
     A rebuild happens when the current structure's validity horizon is
-    used up; it reads s_valid once (the one host sync of a rebuild: the
-    band build works at the static caps and reads nothing), and that
-    integer sets the horizon and, with cfg.span_age_mult, the hold limit
+    used up; it reads the build's report once (the one host sync of a
+    rebuild: s_valid, the build's flags and its demand, one copy), and
+    s_valid sets the horizon, the next envelope horizon k_env =
+    clip(2 s_valid, 1, K) and, with cfg.span_age_mult, the hold limit
     r_eff = clip(span_age_mult * s_valid, 1, R).  Every other decision is
     taken from host integers, so an inner step (far+mid refresh or not,
     with or without refresh_moments, exact near, integrate) reads nothing
     back from the device.
+
+    A build with any flag set is not swept.  Inside the span
+    nbody.caps.grow the loop grows the flagged caps past their demand
+    (grown_config, which raises past cfg.band_budget_gib), makes its
+    graphs again at the grown config and redoes the build from the state
+    the failed one left: the same bodies, already in the order the redone
+    sort gives, and the same k_env, which no graph writes.  It repeats
+    until a build fits (a list's demand counts only what the lists before
+    it kept).  The grown config is the loop's `cfg` from then on.
 
     The held far+mid is refreshed on the first step after a rebuild and
     every R steps; with cfg.farmid_span_rebuilds it is permuted along
@@ -339,27 +475,27 @@ class _AdaptiveLoop(_PaddedLoop):
     The rebuild graph's live outputs are the frozen structures
     (`built`) that the inner-step graphs read.  `load` starts the loop
     again from another state of the same padded row count, reusing the
-    graphs.
+    graphs and the caps.
 
-    Counters that `load` keeps: `builds` (rebuilds), `start_rebuilds`
-    (the first rebuild after each load or construction; the others ran
-    out a validity horizon) and `overflows`, a device int64 [8] that the
-    rebuild graph adds each build's BUILD_FLAGS and whether any is set
-    to.  `n_rebuilds` counts the rebuilds since the last load.
+    Counters that `load` keeps, all on the host: `builds` (rebuilds),
+    `start_rebuilds` (the first rebuild after each load or construction;
+    the others ran out a validity horizon), `builds_redone` (builds with
+    a flag set, thrown away), `cap_growths` (caps grown, one a cap each
+    time it grows), `overflows` (the builds with each BUILD_FLAGS flag
+    set, then with any) and `demand_max` (the largest demand of each
+    DEMANDS kind).  `n_rebuilds` counts the rebuilds since the last load.
 
     The schedule is shared with the multi-device loop
     (parallel/shard.py), which overrides the rebuild (`_build`), the
     moment refresh, the near band and the snapshot, and runs eagerly;
-    its rebuild counts no overflows."""
+    its rebuild counts no overflows and grows no cap."""
 
     def __init__(self, cfg: SimConfig, state: ParticleState,
                  graphs: bool = True):
         graphs = _graphed(cfg, graphs)
         self._start(cfg, state.n, state.mass,
                     *_pad_cycle_state(state, cfg.force_tile), graphs=graphs)
-        self._rebuild_fn = _adaptive_rebuild_fn(cfg)
-        self._rebuild_graph = self._graphed(self._rebuild_body, "rebuild",
-                                            graphs)
+        self._make_rebuild()
 
     def _start(self, cfg: SimConfig, n: int, mass0, pos, vel, mass, acc,
                orig, graphs: bool) -> None:
@@ -373,24 +509,35 @@ class _AdaptiveLoop(_PaddedLoop):
         self.afm = torch.zeros_like(self.pos)
         self.k_env = torch.empty((), dtype=torch.int64, device=dev)
         self.tau = torch.zeros((), dtype=torch.float64, device=dev)
-        self.overflows = torch.zeros(len(BUILD_FLAGS) + 1,
-                                     dtype=torch.int64, device=dev)
+        self.overflows = [0] * (len(BUILD_FLAGS) + 1)
+        self.demand_max = [0] * len(DEMANDS)
         self.builds = self.start_rebuilds = 0
-        # the loop's graphs replay one at a time on one stream and keep
-        # their results in the buffers or in the rebuild's live outputs,
-        # so they share one memory pool
-        self._pool = (torch.cuda.graph_pool_handle()
-                      if graphs and capturable(dev) else None)
-        self._steps = {kind: self._graphed(
-            self._inner, "inner" if kind is None else f"inner.{kind}",
-            graphs, (kind,)) for kind in (None, "farmid", "refreshed")}
+        self.builds_redone = self.cap_growths = 0
+        self._graphs_on = graphs
+        self._make_steps()
         self._reset(n, mass0)
 
-    def _graphed(self, fn, name: str, graphs: bool,
-                 args: tuple = ()) -> Graphed:
+    def _make_steps(self) -> None:
+        """The inner-step graphs, in a memory pool of their own: the
+        loop's graphs replay one at a time on one stream and keep their
+        results in the buffers or in the rebuild's live outputs, so they
+        share one pool."""
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self._graphs_on and capturable(self.pos.device)
+                      else None)
+        self._steps = {kind: self._graphed(
+            self._inner, "inner" if kind is None else f"inner.{kind}",
+            (kind,)) for kind in (None, "farmid", "refreshed")}
+
+    def _make_rebuild(self) -> None:
+        self._rebuild_fn = _adaptive_rebuild_fn(self.cfg)
+        self._rebuild_graph = self._graphed(self._rebuild_body, "rebuild")
+
+    def _graphed(self, fn, name: str, args: tuple = ()) -> Graphed:
         return Graphed(fn, (self.pos, self.vel, self.mass, self.acc,
-                            self.orig, self.afm, self.k_env, self.overflows),
-                       self.pos.device, name, graphs, self._pool, args)
+                            self.orig, self.afm, self.k_env),
+                       self.pos.device, name, self._graphs_on, self._pool,
+                       args)
 
     def _reset(self, n: int, mass0) -> None:
         self.n = n
@@ -415,25 +562,53 @@ class _AdaptiveLoop(_PaddedLoop):
 
     def _rebuild_body(self):
         """The rebuild over the buffers: the fields (and the held far+mid
-        when it spans rebuilds) in the new order, the next k_env written
-        back and the build's overflow flags counted; returns (built,
-        s_valid)."""
-        fields, built, (s_valid, k_next) = self._rebuild_fn(
+        when it spans rebuilds) in the new order; returns (built, report)
+        with report = [s_valid, build_report], int64 [16]."""
+        fields, built, (s_valid, report) = self._rebuild_fn(
             self.pos, self.vel, self.mass, self.acc, self.orig, self.k_env,
             self.afm if self.span else None)
         self._store(*fields[:5])
         if self.span:
             self.afm.copy_(fields[5])
-        self.k_env.copy_(k_next)
-        _count_overflows(self.overflows, build_flags(built[0], built[2]))
-        return built, s_valid
+        return built, torch.cat([s_valid.reshape(1), report])
+
+    def _build_once(self):
+        """One build at the loop's caps: (s_valid, flags, demand), read
+        in one copy, tallied into the counters."""
+        self.built, report = self._rebuild_graph()
+        with span("nbody.rebuild.horizon_read"):
+            r = report.tolist()
+        flags, demand = r[1:1 + len(BUILD_FLAGS)], r[1 + len(BUILD_FLAGS):]
+        for i, f in enumerate(flags + [max(flags)]):
+            self.overflows[i] += f
+        self.demand_max = [max(a, b) for a, b in zip(self.demand_max,
+                                                     demand)]
+        return r[0], flags, demand
+
+    def _grow(self, flags, demand) -> None:
+        """The loop at caps past `demand`: its config, its rebuild and
+        inner-step graphs made again (captured at their next call)."""
+        cfg = grown_config(self.cfg, flags, demand)
+        before, after = caps_in_force(self.cfg), caps_in_force(cfg)
+        self.cap_growths += sum(after[k] != before[k] for k in after)
+        self.cfg = cfg
+        self.built = None
+        self._make_steps()
+        self._make_rebuild()
 
     def _build(self) -> int:
-        """Rebuild: the buffers in the new order, self.built, self.k_env;
-        returns the validity horizon (the one host read)."""
-        self.built, s_valid = self._rebuild_graph()
-        with span("nbody.rebuild.horizon_read"):
-            return int(s_valid.item())
+        """Rebuild: the buffers in the new order, self.built and k_env;
+        returns the validity horizon.  A build with a flag set grows the
+        caps and is done again before any step sweeps it."""
+        s_valid, flags, demand = self._build_once()
+        if any(flags):
+            with span("nbody.caps.grow"):
+                while any(flags):
+                    self._grow(flags, demand)
+                    self.builds_redone += 1
+                    s_valid, flags, demand = self._build_once()
+        self.k_env.fill_(next_envelope(s_valid, self.cfg))
+        return s_valid
 
     def rebuild(self) -> None:
         with span("nbody.rebuild"):
@@ -609,8 +784,11 @@ class _CycleLoop(_PaddedLoop):
     kernels (_graphed); the graphs keep their results in the buffers and
     share one pool.  `load` starts the loop again from another state of
     the same padded row count, reusing the graphs; it keeps the counters
-    `builds` (cycles run) and `overflows` (as _AdaptiveLoop's, added to
-    by every cycle graph)."""
+    `builds` (cycles run) and `tally`, a device int64 [16] that every
+    cycle graph adds its build's report to (_count_build: the builds with
+    each flag set, with any, and the largest demand of each kind).  The
+    caps stay as configured: `Simulation.run` reads the tally at each
+    frame's sync and raises on a build that dropped pairs."""
 
     def __init__(self, cfg: SimConfig, state: ParticleState,
                  graphs: bool = True):
@@ -621,8 +799,7 @@ class _CycleLoop(_PaddedLoop):
         self._pool = (torch.cuda.graph_pool_handle()
                       if self.graphs and capturable(self.pos.device) else None)
         self._cycles: dict = {}         # k -> Graphed
-        self.overflows = torch.zeros(len(BUILD_FLAGS) + 1, dtype=torch.int64,
-                                     device=self.pos.device)
+        self.tally = _new_tally(self.pos.device)
         self.builds = 0
 
     def load(self, state: ParticleState) -> None:
@@ -632,8 +809,8 @@ class _CycleLoop(_PaddedLoop):
         self.n, self.mass0 = state.n, state.mass
 
     def _cycle(self, k: int) -> torch.Tensor:
-        """One k-step cycle over the buffers; counts the build's overflow
-        flags and returns them (build_flags).  k, and with it
+        """One k-step cycle over the buffers; tallies the build's report
+        and returns its overflow flags (build_flags).  k, and with it
         the drift bound's horizon, the hold r and the prediction time
         0.5 (r - 1) dt, is constant for each graph, so baking them in at
         capture is right."""
@@ -644,8 +821,10 @@ class _CycleLoop(_PaddedLoop):
         self._store(*(x[perm] for x in (self.pos, self.vel, self.mass,
                                          self.acc, self.orig)))
         drift = drift_bound(_norms(self.vel), _norms(self.acc), cfg, k)
+        demand = torch.zeros(len(forces.BAND_DEMAND), dtype=torch.int32,
+                             device=self.pos.device)
         cells, supers, bands, tables = forces.build_bands(
-            self.pos, self.mass, codes_s, cfg, drift=drift)
+            self.pos, self.mass, codes_s, cfg, drift=drift, demand=demand)
         tau = 0.5 * (r - 1) * cfg.dt
         for _ in range(k // r):
             afm = forces.apply_farmid(
@@ -661,7 +840,7 @@ class _CycleLoop(_PaddedLoop):
                                (self.acc, acc)):
                     buf.copy_(x)
         flags = build_flags(cells, bands)
-        _count_overflows(self.overflows, flags)
+        _count_build(self.tally, build_report(flags, cells, demand))
         return flags
 
     def cycle(self, k: int) -> torch.Tensor:
@@ -672,7 +851,7 @@ class _CycleLoop(_PaddedLoop):
         if graph is None:
             graph = self._cycles[k] = Graphed(
                 self._cycle, (self.pos, self.vel, self.mass, self.acc,
-                              self.orig, self.overflows), self.pos.device,
+                              self.orig, self.tally), self.pos.device,
                 f"cycle.{k}", self.graphs, self._pool, (k,))
         self.builds += 1
         return graph()
@@ -718,26 +897,38 @@ class _GraphedStep:
     is False, one captured graph (utils/graphs.Graphed, named `name`)
     that reads nothing back.  The step reads no acceleration.  A call
     copies the state in and returns copies of the results, which the
-    next replay overwrites in the graph's outputs."""
+    next replay overwrites in the graph's outputs.  With `tally` the step
+    is step_barnes_hut's tiled path, and each step adds its build's
+    report to the device int64 [16] `tally` (_count_build), counted as
+    `builds`."""
 
     def __init__(self, cfg: SimConfig, state: ParticleState, step_fn,
-                 name: str, graphs: bool = True):
+                 name: str, graphs: bool = True, tally: bool = False):
         self.cfg = cfg
         self._step_fn = step_fn
         self.pos, self.vel, self.mass = (x.clone() for x in state[:3])
-        self._graph = Graphed(self._body, (), state.device, name,
+        self.tally = _new_tally(state.device) if tally else None
+        self.builds = 0
+        self._graph = Graphed(self._body, () if self.tally is None
+                              else (self.tally,), state.device, name,
                               _graphed(cfg, graphs))
 
     def _body(self) -> ParticleState:
-        return self._step_fn(ParticleState(pos=self.pos, vel=self.vel,
-                                           mass=self.mass, acc=None),
-                             self.cfg)
+        st = ParticleState(pos=self.pos, vel=self.vel, mass=self.mass,
+                           acc=None)
+        if self.tally is None:
+            return self._step_fn(st, self.cfg)
+        stats: dict = {}
+        out = self._step_fn(st, self.cfg, "tiled", stats)
+        _count_build(self.tally, stats["report"])
+        return out
 
     def __call__(self, state: ParticleState) -> ParticleState:
         with span("nbody.step"):
             for buf, x in zip((self.pos, self.vel, self.mass), state[:3]):
                 buf.copy_(x)
             out = self._graph()
+            self.builds += self.tally is not None
             return ParticleState(pos=out.pos.clone(), vel=out.vel.clone(),
                                  mass=state.mass, acc=out.acc.clone())
 
@@ -797,10 +988,10 @@ class Simulation:
         key = (self.cfg, state.n, state.device)
         step = self._steps.get(key)
         if step is None:
+            direct = self.method == "direct"
             step = self._steps[key] = _GraphedStep(
-                self.cfg, state,
-                step_direct if self.method == "direct" else step_barnes_hut,
-                "step")
+                self.cfg, state, step_direct if direct else step_barnes_hut,
+                "step", tally=not direct)
         return step(state)
 
     def step(self, state: ParticleState) -> ParticleState:
@@ -813,7 +1004,10 @@ class Simulation:
             callback_every: int = 0) -> ParticleState:
         """Advance n_steps through `run_scan`; with a callback, in chunks
         of `callback_every` steps, synchronizing the device before each
-        call of `callback(steps_done, state)`."""
+        call of `callback(steps_done, state)`.  After each chunk's sync
+        (without a callback, at the end) the per-step rebuild's and the
+        fixed-K cycles' build tallies are read, and a build that dropped
+        pairs raises (_check_builds)."""
         chunk = (callback_every if callback is not None and callback_every
                  else n_steps)
         done = 0
@@ -824,7 +1018,10 @@ class Simulation:
             if callback is not None and callback_every:
                 if state.device.type == "cuda":
                     torch.cuda.synchronize(state.device)
+                self._check_builds()
                 callback(done, state)
+        if callback is None or not callback_every:
+            self._check_builds()
         return state
 
     def run_scan(self, state: ParticleState, n_steps: int) -> ParticleState:
@@ -857,21 +1054,75 @@ class Simulation:
     def n_start_rebuilds(self) -> int:
         return sum(loop.start_rebuilds for loop in self._loops.values())
 
+    def _tallies(self) -> list:
+        """The device tallies (_count_build) of the per-step rebuild and
+        the fixed-K cycles, summed (counts) and maxed (demand), read in
+        one copy: int [16]."""
+        tallies = [x.tally for x in (*self._steps.values(),
+                                      *self._cycles.values())
+                   if x.tally is not None]
+        if not tallies:
+            return [0] * (len(BUILD_FLAGS) + 1 + len(DEMANDS))
+        if len(tallies) == 1:
+            return tallies[0].tolist()
+        t = torch.stack(tallies)
+        n = len(BUILD_FLAGS) + 1
+        return torch.cat([t[:, :n].sum(0), t[:, n:].amax(0)]).tolist()
+
+    def _check_builds(self) -> None:
+        """Raise if a per-step or fixed-K cycle build has dropped pairs
+        (a flag of BUILD_FLAGS but the grandchild one set), naming the
+        demanded caps: those paths keep their caps."""
+        if not (self._cycles or any(x.tally is not None
+                                    for x in self._steps.values())):
+            return
+        t = self._tallies()
+        flags = dict(zip(BUILD_FLAGS, t[:len(BUILD_FLAGS)]))
+        dropped = {k: v for k, v in flags.items() if k in _DROPPING and v}
+        if dropped:
+            demand = dict(zip(DEMANDS, t[len(BUILD_FLAGS) + 1:]))
+            caps = caps_in_force(self.cfg)
+            wanted = {k: v for k, v in demand.items() if v > caps[k]}
+            raise RuntimeError(
+                f"band builds of the per-step rebuild or the fixed-K cycles "
+                f"overflowed their caps and dropped pairs (builds by flag "
+                f"{dropped}): demanded {wanted}, caps {caps}; raise those "
+                "caps in the config")
+
     def counters(self) -> dict:
         """Counts over every run_scan call: "rebuilds"
         (n_rebuilds), "start_rebuilds" (n_start_rebuilds), "builds" (the
-        band builds of the adaptive loops and the fixed-K cycles),
-        "overflowed_builds" (those with any flag of BUILD_FLAGS set) and
-        "overflow_by_flag" (builds with each flag set).  One host read;
-        the per-step rebuild (K <= 1) counts nothing."""
-        loops = [*self._loops.values(), *self._cycles.values()]
-        counts = (torch.stack([loop.overflows for loop in loops]).sum(0)
-                  .tolist() if loops else [0] * (len(BUILD_FLAGS) + 1))
+        band builds of the adaptive loops, those redone included, and of
+        the fixed-K cycles), "step_builds" (the per-step rebuild's),
+        "overflowed_builds" (builds of all three with any flag of
+        BUILD_FLAGS set) and "overflow_by_flag" (builds with each flag
+        set), "builds_redone" and "cap_growths" (the adaptive loops',
+        _AdaptiveLoop), "caps" (the caps in force, by DEMANDS name: the
+        largest of the adaptive loops' and the config's) and "demand_max"
+        (the largest demand of each kind, of every build).  One host
+        read."""
+        loops = list(self._loops.values())
+        t = self._tallies()
+        n = len(BUILD_FLAGS) + 1
+        counts, demand = t[:n], t[n:]
+        for loop in loops:
+            counts = [a + b for a, b in zip(counts, loop.overflows)]
+            demand = [max(a, b) for a, b in zip(demand, loop.demand_max)]
+        caps = caps_in_force(self.cfg)
+        for loop in loops:
+            caps = {k: max(v, caps_in_force(loop.cfg)[k])
+                    for k, v in caps.items()}
         return {"rebuilds": self.n_rebuilds,
                 "start_rebuilds": self.n_start_rebuilds,
-                "builds": sum(loop.builds for loop in loops),
+                "builds": sum(x.builds + x.builds_redone for x in loops)
+                + sum(x.builds for x in self._cycles.values()),
+                "step_builds": sum(x.builds for x in self._steps.values()),
                 "overflowed_builds": counts[-1],
-                "overflow_by_flag": dict(zip(BUILD_FLAGS, counts[:-1]))}
+                "overflow_by_flag": dict(zip(BUILD_FLAGS, counts[:-1])),
+                "builds_redone": sum(x.builds_redone for x in loops),
+                "cap_growths": sum(x.cap_growths for x in loops),
+                "caps": caps,
+                "demand_max": dict(zip(DEMANDS, demand))}
 
     def make_stepper(self, state: ParticleState) -> Optional[AdaptiveStepper]:
         """A persistent stepper for interactive use, or None when the
@@ -886,9 +1137,11 @@ class Simulation:
 
     def _check_overflow(self, state: ParticleState) -> None:
         """One-time guard on the first step: cell-capacity overflow drops
-        whole cells (their mass is missing from every force), so warn
-        loudly; grandchild-cap overflow is graceful and warned for
-        tuning.  cfg.check_overflow=False skips it."""
+        whole cells (their mass is missing from every force of the
+        per-step rebuild and the fixed-K cycles, and the adaptive runner
+        grows the capacity at its first build), so warn loudly;
+        grandchild-cap overflow is graceful and warned for tuning.
+        cfg.check_overflow=False skips it."""
         if self._overflow_checked:
             return
         self._overflow_checked = True
@@ -907,7 +1160,8 @@ class Simulation:
                     f"adaptive-cell capacity overflow: n_cells="
                     f"{int(cells.n_cells)} > cell_capacity="
                     f"{cfg.cell_capacity}; truncated cells' mass is MISSING "
-                    "from all forces — raise cfg.cell_cap_factor (now "
+                    "from all forces but the adaptive runner's, which grows "
+                    "the capacity — raise cfg.cell_cap_factor (now "
                     f"{cfg.cell_cap_factor})",
                     RuntimeWarning, stacklevel=3)
             elif bool(cells.overflow_g2):

@@ -65,6 +65,19 @@ class SourceCells(NamedTuple):
     overflow_g2: torch.Tensor  # [] bool: grandchild cap overflow (graceful)
 
 
+# What a cut demands of the static capacities: the cell slots (its cells,
+# or an eighth of its children where those are more, since each cell has 8
+# child slots) and the grandchild segments.  build_source_cells' overflow
+# is the first past g_cap, overflow_g2 the second past the grandchild cap.
+CELL_DEMAND = ("cells", "g2")
+
+
+def capacity_demand(cells: SourceCells) -> torch.Tensor:
+    """int64 [2]: the CELL_DEMAND of one cut."""
+    return torch.stack([torch.maximum(cells.n_cells, (cells.n_child + 7) // 8),
+                        cells.n_g2])
+
+
 def max_depth_of(bits: int) -> int:
     return MAX_DEPTH_63 if bits == 63 else MAX_DEPTH
 

@@ -2,9 +2,11 @@
 
 ``cell_band_lists`` takes the arguments of the plain
 ``forces.cell_band_lists_torch`` and returns the same ``CellBands``, bit
-for bit.  On CPU tensors it returns the plain version; on CUDA tensors
-``kernel_args`` checks device, dtype, shape and contiguity and allocates
-the outputs at the static caps, and the kernel is launched once on the
+for bit, and writes the same demand (``forces.BAND_DEMAND``) into
+``demand`` when given.  On CPU tensors it returns the plain version; on
+CUDA tensors ``kernel_args`` checks device, dtype, shape and contiguity
+and allocates the outputs at the static caps, and the kernel is launched
+once on the
 current stream, with no host read, so a rebuild that calls it still
 captures into a CUDA graph.  ``LAUNCHES`` counts its launches, under a
 graph's replay too (``launch.uncounted`` and ``launch.add``).
@@ -36,10 +38,26 @@ _INPUTS = ("tgt_center", "tgt_radius", "tgt_skin",
            "gkid_com", "gkid_gmass")
 _OUTPUTS = ("ss_idx", "ss_cnt", "sup_idx", "sup_cnt", "mid_idx", "mid_cnt",
             "cmid_idx", "cmid_cnt", "near_idx", "near_cnt", "win_first",
-            "win_mask", "win_cnt", "flags")
+            "win_mask", "win_cnt", "flags", "demand")
 _SIZES = ("tiles", "n_ss", "n_sup", "g_cap", "ss_cap", "sup_cap", "mid_cap",
           "cmid_cap", "near_cap", "win_cap", "pieces")
 _FLOATS = ("half", "soft", "theta")
+
+# The dynamic shared memory a block may opt in to on an H100 (227 KB), less
+# the kernel's static shared arrays.
+SMEM_LIMIT = 227 * 1024 - 256
+# The longest near list the kernel keeps in shared memory (kNearSmem); a
+# longer one it builds in its output row.
+NEAR_SMEM = 8192
+
+
+def smem_bytes(cfg: SimConfig) -> int:
+    """The dynamic shared memory the kernel takes at cfg's caps: the ss,
+    sup and mid lists, the near list up to NEAR_SMEM entries, and the
+    window keys and words."""
+    near = cfg.near_cap if cfg.near_cap <= NEAR_SMEM else 0
+    return 4 * (cfg.ss_cap + cfg.sup_cap + cfg.mid_cap + near
+                + 5 * cfg.win_cap_eff)
 
 
 class ClassifyArgs(ctypes.Structure):
@@ -49,11 +67,12 @@ class ClassifyArgs(ctypes.Structure):
 
 
 def kernel_args(tgt_subs: "_forces.GroupInfo", ss: "_forces.Supers",
-                supers: "_forces.Supers", cells, cfg: SimConfig, skin=0.0
-                ) -> Tuple[ClassifyArgs, "_forces.CellBands"]:
+                supers: "_forces.Supers", cells, cfg: SimConfig, skin=0.0,
+                demand=None) -> Tuple[ClassifyArgs, "_forces.CellBands"]:
     """The kernel's argument block and the CellBands it fills, allocated
-    on the inputs' device; raises on a dtype, shape or layout the kernel
-    does not take."""
+    on the inputs' device, with `demand` (int32 [6], zeroed; allocated
+    when None); raises on a dtype, shape or layout the kernel does not
+    take."""
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     n_ss = ss.com.shape[0]
     n_sup = supers.com.shape[0]
@@ -109,8 +128,12 @@ def kernel_args(tgt_subs: "_forces.GroupInfo", ss: "_forces.Supers",
         win_first=out(w), win_mask=out(4, w), win_cnt=out(),
         ss_overflow=flags[0], sup_overflow=flags[1], mid_overflow=flags[2],
         cmid_overflow=flags[3], near_overflow=flags[4])
-    ptrs.update({f: getattr(bands, f).data_ptr() for f in _OUTPUTS[:-1]})
+    if demand is None:
+        demand = torch.zeros(len(_forces.BAND_DEMAND), dtype=i32, device=dev)
+    ptrs.update({f: getattr(bands, f).data_ptr() for f in _OUTPUTS[:-2]})
     ptrs["flags"] = flags.data_ptr()
+    ptrs["demand"] = check(demand, i32, (len(_forces.BAND_DEMAND),),
+                           "demand")
     sizes = dict(tiles=t, n_ss=n_ss, n_sup=n_sup, g_cap=g_cap,
                  ss_cap=cfg.ss_cap, sup_cap=cfg.sup_cap, mid_cap=cfg.mid_cap,
                  cmid_cap=cfg.cmid_cap, near_cap=cfg.near_cap, win_cap=w,
@@ -122,13 +145,13 @@ def kernel_args(tgt_subs: "_forces.GroupInfo", ss: "_forces.Supers",
 
 def cell_band_lists(tgt_subs: "_forces.GroupInfo", ss: "_forces.Supers",
                     supers: "_forces.Supers", cells, cfg: SimConfig,
-                    skin=0.0) -> "_forces.CellBands":
+                    skin=0.0, demand=None) -> "_forces.CellBands":
     """Kernel version of forces.cell_band_lists_torch."""
     if on_cpu(tgt_subs.center, ss.com, supers.com, cells.com,
               cells.child_com):
         return _forces.cell_band_lists_torch(tgt_subs, ss, supers, cells, cfg,
-                                             skin=skin)
-    args, bands = kernel_args(tgt_subs, ss, supers, cells, cfg, skin)
+                                             skin=skin, demand=demand)
+    args, bands = kernel_args(tgt_subs, ss, supers, cells, cfg, skin, demand)
     rc = build.load("band_classify").nbody_band_classify(
         ctypes.addressof(args), stream(tgt_subs.center))
     launched(rc, "band_classify", LAUNCHES)

@@ -46,6 +46,10 @@ SPAN_ALIGN = 128
 SUB_FACTOR = 8
 # Element budget of one plain-sweep panel (targets x sources).
 _PANEL_ELEMS = 1 << 25
+# What a band build demands of each list, the longest over tiles: the raw
+# counts of the five band lists and the near children's distinct windows
+# (the lengths that would hold every entry), in cell_band_lists' `demand`.
+BAND_DEMAND = ("ss", "sup", "mid", "cmid", "near", "win")
 
 
 def soft_term(cfg: SimConfig) -> float:
@@ -408,7 +412,7 @@ def _pieces(f: torch.Tensor, cnt: torch.Tensor, p: int, big: int):
 
 
 def _window_masks(first: torch.Tensor, count: torch.Tensor, win_cap: int,
-                  pieces: int):
+                  pieces: int, with_demand: bool = False):
     """Near-child runs -> deduplicated (aligned window, 128-bit mask)
     pairs, capped at win_cap distinct windows per row.
 
@@ -422,8 +426,10 @@ def _window_masks(first: torch.Tensor, count: torch.Tensor, win_cap: int,
     Children whose windows pass win_cap form a suffix and are dropped
     WHOLLY: their pieces' masks are zeroed before the merge and the caller
     truncates their anti-rows (kept_children), so they keep their own
-    child monopole.  This one routine stands for both JAX variants
-    (_window_masks and its dense oracle)."""
+    child monopole.  With `with_demand` a sixth result: each row's
+    distinct live windows [R], what win_cap would have to be to drop no
+    child.  This one routine stands for both JAX variants (_window_masks
+    and its dense oracle)."""
     big = _BIG
     dev = first.device
     p = pieces
@@ -454,25 +460,29 @@ def _window_masks(first: torch.Tensor, count: torch.Tensor, win_cap: int,
     acc = torch.where(live[..., None], acc, 0)
     acc = torch.where(acc >= 1 << 31, acc - (1 << 32), acc)   # as int32
     win_mask = acc.permute(0, 2, 1).to(_I32).contiguous()
-    return win_first, win_mask, live.sum(dim=1), kept, dropped
+    out = (win_first, win_mask, live.sum(dim=1), kept, dropped)
+    if with_demand:
+        out += ((bnd & (key < big)).sum(dim=1),)
+    return out
 
 
 def cell_band_lists(tgt_subs: GroupInfo, ss: Supers, supers: Supers, cells,
-                    cfg: SimConfig, skin=0.0) -> CellBands:
+                    cfg: SimConfig, skin=0.0, demand=None) -> CellBands:
     """The band classification (cell_band_lists_torch): the CUDA kernel
     of ``ops/cuda/classify.py`` when ``cfg.use_pallas`` is set (on CUDA
-    tensors; bit for bit the plain version's), the plain version
-    otherwise."""
+    tensors; bit for bit the plain version's, the demand too), the plain
+    version otherwise."""
     fn = cell_band_lists_torch
     if cfg.use_pallas:
         from nbody_tpu_torch.ops.cuda import classify
 
         fn = classify.cell_band_lists
-    return fn(tgt_subs, ss, supers, cells, cfg, skin=skin)
+    return fn(tgt_subs, ss, supers, cells, cfg, skin=skin, demand=demand)
 
 
 def cell_band_lists_torch(tgt_subs: GroupInfo, ss: Supers, supers: Supers,
-                          cells, cfg: SimConfig, skin=0.0) -> CellBands:
+                          cells, cfg: SimConfig, skin=0.0,
+                          demand=None) -> CellBands:
     """Four-stage classification, chunked over target tiles.
 
     Stage 0 tests every super-super against the tile's sub-spheres (min
@@ -483,6 +493,11 @@ def cell_band_lists_torch(tgt_subs: GroupInfo, ss: Supers, supers: Supers,
     `skin` is a uniform margin for band reuse; per-entity skins compose
     with it: (diam + 2*(src_skin + skin/2)) /
     dist(max(gap - (src_skin + skin/2) - (tgt_skin + skin/2), 0)) < theta.
+    `demand`, an int32 [6] tensor, receives the build's BAND_DEMAND: each
+    list's raw count and the distinct near windows, the most over tiles
+    (a list past its cap overflows: its flag is set and its entries past
+    the cap are dropped; the counts downstream of it are then taken over
+    the kept entries only).
     """
     dev = tgt_subs.center.device
     ss_cap, s_cap = cfg.ss_cap, cfg.sup_cap
@@ -608,8 +623,9 @@ def cell_band_lists_torch(tgt_subs: GroupInfo, ss: Supers, supers: Supers,
         # near windows; children past win_cap drop with their anti-rows
         ni_safe = torch.clamp(ni, max=k_cap)
         fc = fc_flat[ni_safe]                           # [C, near_cap, 2]
-        wf, wm, win_cnt, kept, dropped = _window_masks(
-            fc[..., 0], fc[..., 1], cfg.win_cap_eff, cfg.win_pieces)
+        wf, wm, win_cnt, kept, dropped, win_dem = _window_masks(
+            fc[..., 0], fc[..., 1], cfg.win_cap_eff, cfg.win_pieces,
+            with_demand=True)
         nc_k = torch.minimum(torch.clamp(nc, max=near_cap), kept)
         lane_n = torch.arange(near_cap, device=dev)[None, :]
         ni_safe = torch.where(lane_n < nc_k[:, None], ni_safe, k_cap)
@@ -622,6 +638,8 @@ def cell_band_lists_torch(tgt_subs: GroupInfo, ss: Supers, supers: Supers,
             (ss_cnt > ss_cap).any(), (sup_cnt > s_cap).any(),
             (mc_raw > mid_cap).any(), (cc > cmid_cap).any(),
             ((nc > near_cap) | dropped).any(),
+            torch.stack([x.max() for x in (ss_cnt, sup_cnt, mc_raw, cc, nc,
+                                            win_dem)]),
         )
 
     parts = [one_chunk(centers[i:i + chunk], radii[i:i + chunk],
@@ -634,6 +652,8 @@ def cell_band_lists_torch(tgt_subs: GroupInfo, ss: Supers, supers: Supers,
     def any_of(j):
         return torch.stack(cols[j]).any()
 
+    if demand is not None:
+        demand.copy_(torch.stack(cols[18]).amax(dim=0))
     return CellBands(
         ss_idx=cat_i32(0), ss_cnt=cat_i32(1),
         sup_idx=cat_i32(2), sup_cnt=cat_i32(3),
@@ -825,11 +845,13 @@ def near_correction_torch(tgt_pos: torch.Tensor, src_pos: torch.Tensor,
 
 def build_bands(pos_s: torch.Tensor, mass_s: torch.Tensor,
                 codes_s: torch.Tensor, cfg: SimConfig, skin=0.0,
-                drift: torch.Tensor | None = None):
+                drift: torch.Tensor | None = None,
+                demand: torch.Tensor | None = None):
     """Adaptive cells -> supers -> super-supers -> tile sub-spheres ->
     band lists -> tables, on Morton-sorted tile-padded inputs.  Returns
     (cells, far, bands, tables), `far` being the super-supers the far
-    sweep runs over."""
+    sweep runs over; `demand` (int32 [6], zeroed) receives the band
+    lists' BAND_DEMAND (cell_band_lists)."""
     b = cfg.force_tile
     bits = cfg.morton_bits
     box_lo, box_size = _bbox.bounding_cube(pos_s)
@@ -841,7 +863,8 @@ def build_bands(pos_s: torch.Tensor, mass_s: torch.Tensor,
     ss = make_ss(supers, cfg)
     tgt_subs = target_subspheres(pos_s, b, drift=drift, codes=codes_s,
                                  bits=bits)
-    bands = cell_band_lists(tgt_subs, ss, supers, cells, cfg, skin=skin)
+    bands = cell_band_lists(tgt_subs, ss, supers, cells, cfg, skin=skin,
+                            demand=demand)
     tables = build_cell_tables(cells, supers, ss, bands)
     return cells, ss, bands, tables
 

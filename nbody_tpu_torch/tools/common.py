@@ -167,7 +167,7 @@ def first_rebuild(state: ParticleState, cfg: SimConfig):
     `state` with k_env = K (the first rebuild of every run_scan call,
     envelopes for cfg.rebuild_every steps).  rebuild(*args) returns
     ((pos, vel, mass, acc, orig, afm), (cells, ss, bands, tables, rctx),
-    (s_valid, k_next)) in the new (sorted, tile-padded) order, as
+    (s_valid, report)) in the new (sorted, tile-padded) order, as
     models.simulation._adaptive_rebuild_fn says."""
     args = _pad_cycle_state(state, cfg.force_tile) + (
         torch.full((), cfg.rebuild_every, device=state.device),)

@@ -31,7 +31,7 @@ import numpy as np
 
 from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.models.simulation import Simulation, \
-    make_adaptive_runner
+    make_adaptive_runner, next_envelope
 from nbody_tpu_torch.state import ParticleState
 from nbody_tpu_torch.utils.profiling import _sync
 from nbody_tpu_torch.tools import common
@@ -73,11 +73,12 @@ def rebuild_timed(state: ParticleState, cfg: SimConfig) -> dict:
     times = []
     for _ in range(REPS):
         t0 = time.perf_counter()
-        _, _, (s_valid, k_next) = rebuild(*args)
+        _, _, (s_valid, _) = rebuild(*args)
         _sync(s_valid)
         times.append(1e3 * (time.perf_counter() - t0))
     return {"ms": float(np.median(times)), "ms_all": times,
-            "s_valid": int(s_valid), "k_next": int(k_next)}
+            "s_valid": int(s_valid),
+            "k_next": next_envelope(int(s_valid), cfg)}
 
 
 def fit(runs: dict, y_bare: float) -> dict:

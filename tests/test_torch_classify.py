@@ -75,6 +75,44 @@ def test_cpu_tensors_take_the_plain_classifier(upstream, use_pallas, skin,
     assert int(got.near_cnt.sum()) > 0 and int(got.win_cnt.sum()) > 0
 
 
+@pytest.mark.parametrize("skin", [0.0, 40.0])
+def test_demand_is_the_longest_list_and_flags_fire_exactly_past_it(upstream,
+                                                                  skin):
+    """The plain classifier's demand (forces.BAND_DEMAND, the kernel's
+    bit for bit on the card): at caps that hold every list, each list's
+    and window row's longest live count.  At caps equal to the demand no
+    flag is set and every array is the larger caps' cut to the new
+    widths, bit for bit; a cap one below its demand sets that list's
+    flag alone (the windows' the near flag) and reports the same
+    demand."""
+    d = torch.zeros(len(forces.BAND_DEMAND), dtype=torch.int32)
+    want = forces.cell_band_lists_torch(*upstream, CFG, skin=skin, demand=d)
+    assert not any(bool(want[i]) for i in range(13, 18))
+    live = (want.ss_cnt, want.sup_cnt, want.mid_cnt, want.cmid_cnt,
+            want.near_cnt, want.win_cnt)
+    assert d.tolist() == [int(x.max()) for x in live]
+    assert min(d.tolist()) > 0
+    caps = dict(zip(("ss_cap", "sup_cap", "mid_cap", "cmid_cap", "near_cap",
+                     "win_cap"), d.tolist()))
+    fit = CFG.replace(**caps)
+    d2 = torch.zeros_like(d)
+    got = forces.cell_band_lists_torch(*upstream, fit, skin=skin, demand=d2)
+    assert torch.equal(d2, d)
+    assert not any(bool(got[i]) for i in range(13, 18))
+    for f, g, w in zip(forces.CellBands._fields[:13], got, want):
+        assert torch.equal(g, w[..., :g.shape[-1]]), f
+    flag_of = dict(zip(forces.BAND_DEMAND, forces.CellBands._fields[13:]
+                       + ("near_overflow",)))
+    for (cap, v), name in zip(caps.items(), forces.BAND_DEMAND):
+        d3 = torch.zeros_like(d)
+        short = forces.cell_band_lists_torch(
+            *upstream, fit.replace(**{cap: v - 1}), skin=skin, demand=d3)
+        set_ = {f for f in forces.CellBands._fields[13:]
+                if bool(getattr(short, f))}
+        assert set_ == {flag_of[name]}, name
+        assert int(d3[forces.BAND_DEMAND.index(name)]) == v, name
+
+
 def _struct_fields():
     """(name, kind) of each field of the source's struct ClassifyArgs."""
     body = re.search(r"struct ClassifyArgs \{(.*?)\n\};", SOURCE.read_text(),
@@ -96,7 +134,7 @@ def test_argument_block_mirrors_the_kernel_struct():
              ctypes.c_float: "float"}
     got = [(n, kinds[t]) for n, t in classify.ClassifyArgs._fields_]
     assert got == _struct_fields()
-    assert ctypes.sizeof(classify.ClassifyArgs) == 8 * 38 + 4 * 14
+    assert ctypes.sizeof(classify.ClassifyArgs) == 8 * 39 + 4 * 14
 
 
 def test_kernel_args_allocate_the_plain_shapes(upstream, no_launch):

@@ -166,7 +166,9 @@ def test_hold_predict_pos_matches(mode):
 
 REBUILD_CASES = {
     "caps": dict(BASE, n=2000, rebuild_every=16),
-    # tiny caps: the skins overflow the band caps, so k_next halves
+    # tiny caps: the skins overflow the band caps; the build's report
+    # carries the flags, and k_next_of (the sharded runner's feedback)
+    # halves k_env
     "tiny_caps": dict(BASE, n=2000, rebuild_every=16, sup_cap=8, mid_cap=16,
                       cmid_cap=16, near_cap=16),
 }
@@ -184,11 +186,15 @@ def rebuilt(request):
     tpos, tvel, tmass, tacc, torig = tsim._pad_cycle_state(_tstate(st),
                                                            tc.force_tile)
     np.testing.assert_array_equal(torig.numpy(), np.asarray(orig))
-    fields, tbuilt, (ts_valid, tk_next) = tsim._adaptive_rebuild_fn(tc)(
-        tpos, tvel, tmass, tacc, torig, torch.tensor(16))
+    k_env = torch.tensor(16)
+    fields, tbuilt, (ts_valid, report) = tsim._adaptive_rebuild_fn(tc)(
+        tpos, tvel, tmass, tacc, torig, k_env)
+    tk_next = tsim.k_next_of(k_env, ts_valid,
+                             tsim.bands_overflowed(tbuilt[2]), tc)
     return dict(name=request.param, jc=jc, tc=tc, built=built,
                 s_valid=int(s_valid), k_next=int(k_next), fields=fields,
-                tbuilt=tbuilt, ts_valid=ts_valid, tk_next=tk_next)
+                tbuilt=tbuilt, ts_valid=ts_valid, tk_next=tk_next,
+                report=report)
 
 
 def test_adaptive_rebuild_matches(rebuilt):
@@ -222,6 +228,26 @@ def test_adaptive_rebuild_matches(rebuilt):
     assert overflow == (r["name"] == "tiny_caps")
     if overflow:
         assert r["k_next"] == 8                   # halved from k_env = 16
+    # the report: the JAX build's flags, then each list's demand, which
+    # passes its cap exactly where the flag is set (near: or the windows)
+    report = r["report"].tolist()
+    nf = len(tsim.BUILD_FLAGS)
+    flags = dict(zip(tsim.BUILD_FLAGS, report[:nf]))
+    demand = dict(zip(tsim.DEMANDS, report[nf:]))
+    for k in ("ss", "sup", "mid", "cmid", "near"):
+        assert flags[k] == bool(getattr(jbands, f"{k}_overflow")), k
+    cells = r["tbuilt"][0]
+    assert (flags["cells"], flags["g2"]) == (bool(cells.overflow),
+                                             bool(cells.overflow_g2))
+    assert (demand["cells"], demand["g2"]) == (
+        max(int(cells.n_cells), -(-int(cells.n_child) // 8)),
+        int(cells.n_g2))
+    caps = tsim.caps_in_force(r["tc"])
+    for k in ("ss", "sup", "mid", "cmid"):
+        assert flags[k] == (demand[k] > caps[k]), k
+    assert flags["near"] == (demand["near"] > caps["near"]
+                             or demand["win"] > caps["win"])
+    assert demand["near"] == int(jbands.near_cnt.max()) or flags["near"]
 
 
 def test_refresh_farmid_matches(rebuilt):

@@ -28,7 +28,7 @@ from nbody_tpu.state import ParticleState as JState
 from nbody_tpu.utils import io as jio, metrics as jmetrics
 
 from nbody_tpu_torch.config import PRESETS, SimConfig
-from nbody_tpu_torch.convert import state_from_numpy
+from nbody_tpu_torch.convert import config_to_dict, state_from_numpy
 from nbody_tpu_torch.init import disk_galaxy_msvc
 from nbody_tpu_torch.models import simulation as tsim
 from nbody_tpu_torch.ops import bbox as tbbox, cells as tcells, \
@@ -58,7 +58,7 @@ TRAJ = dict(rtol=1e-5, atol=1e-3)
 
 
 def _jc(cfg):
-    return JConfig(**dict(dataclasses.asdict(cfg), use_pallas=False))
+    return JConfig(**dict(config_to_dict(cfg), use_pallas=False))
 
 
 @functools.lru_cache(maxsize=None)

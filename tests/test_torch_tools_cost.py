@@ -5,7 +5,6 @@ from a numpy seed: rebuild counts, validity horizons, envelope horizons,
 band demand and cell counts bit-identical; the times are only checked to
 be positive (a CPU time says nothing about the card)."""
 
-import dataclasses
 import functools
 
 import numpy as np
@@ -18,7 +17,7 @@ from nbody_tpu.config import SimConfig as JConfig
 from nbody_tpu.models import simulation as jsim
 from nbody_tpu.ops import cells as jcells, forces as jforces
 
-from nbody_tpu_torch.convert import state_from_numpy
+from nbody_tpu_torch.convert import config_to_dict, state_from_numpy
 from nbody_tpu_torch.init import disk_galaxy_msvc
 from nbody_tpu_torch.models import simulation as tsim
 from nbody_tpu_torch.ops import bbox as tbbox, cells as tcells, \
@@ -35,7 +34,7 @@ CFG = prof_runner.make_config(N).replace(force_tile=128, use_pallas=False)
 
 
 def _jc(cfg):
-    return JConfig(**dict(dataclasses.asdict(cfg), use_pallas=False))
+    return JConfig(**dict(config_to_dict(cfg), use_pallas=False))
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,7 +6,6 @@ few inner steps on the same bands and within the runner tests'
 tolerance over whole runs (TRAJ); times are only checked to be positive
 (a CPU time says nothing about the card)."""
 
-import dataclasses
 import functools
 
 import numpy as np
@@ -21,7 +20,7 @@ from nbody_tpu.ops import bbox as jbbox, forces as jforces, \
     integrate as jinteg, morton as jmorton
 from nbody_tpu.state import ParticleState as JState
 
-from nbody_tpu_torch.convert import state_from_numpy
+from nbody_tpu_torch.convert import config_to_dict, state_from_numpy
 from nbody_tpu_torch.init import disk_galaxy_msvc
 from nbody_tpu_torch.ops import forces as tforces
 from nbody_tpu_torch.tools import common, prof_cadence, prof_cycle, \
@@ -36,7 +35,7 @@ TRAJ = dict(rtol=1e-5, atol=1e-3)
 
 
 def _jc(cfg):
-    return JConfig(**dict(dataclasses.asdict(cfg), use_pallas=False))
+    return JConfig(**dict(config_to_dict(cfg), use_pallas=False))
 
 
 @functools.lru_cache(maxsize=None)

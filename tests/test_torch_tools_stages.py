@@ -6,7 +6,6 @@ float moments agree within float32 prefix-sum rounding (stated where
 checked); times are only checked to be positive (a CPU time says
 nothing about the card)."""
 
-import dataclasses
 import functools
 
 import numpy as np
@@ -20,7 +19,7 @@ from nbody_tpu.models import simulation as jsim
 from nbody_tpu.ops import bbox as jbbox, cells as jcells, forces as jforces, \
     morton as jmorton
 
-from nbody_tpu_torch.convert import state_from_numpy
+from nbody_tpu_torch.convert import config_to_dict, state_from_numpy
 from nbody_tpu_torch.init import disk_galaxy_msvc
 from nbody_tpu_torch.ops import cells as tcells, forces as tforces
 from nbody_tpu_torch.tools import common, prof_cells, prof_classify, \
@@ -32,7 +31,7 @@ N = 2048
 
 
 def _jc(cfg):
-    return JConfig(**dict(dataclasses.asdict(cfg), use_pallas=False))
+    return JConfig(**dict(config_to_dict(cfg), use_pallas=False))
 
 
 @functools.lru_cache(maxsize=None)

@@ -172,10 +172,13 @@ def test_start_rebuilds_count_the_run_scan_calls(replayed):
 @pytest.mark.parametrize("path", ["adaptive", "cycles"])
 def test_overflow_counts_equal_bh_diagnostics(request, path, graphed):
     """A near_cap of 16 overflows the near band of every build and no
-    other list (bh_diagnostics' flags at the start and the end state):
-    counters() counts every build overflowed, by its near flag alone, the
-    same through the graphs (the warm-up's and the capture's additions
-    taken back out) as eagerly."""
+    other list (bh_diagnostics' flags at the start and the end state).
+    The cycles keep the cap: counters() counts every build overflowed,
+    by its near flag alone.  The adaptive loop grows the cap past the
+    demand at its first build and redoes it: counters() counts that build
+    overflowed, by its near flag alone, and redone, and no later build
+    overflows.  The same through the graphs (the warm-up's and the
+    capture's additions taken back out) as eagerly."""
     if graphed:
         request.getfixturevalue("replayed")
     cfg, ic = _setup(path, near_cap=16)
@@ -187,8 +190,14 @@ def test_overflow_counts_equal_bh_diagnostics(request, path, graphed):
     assert want == end and want["near"] and sum(want.values()) == 1
     c = sim.counters()
     assert c["builds"] >= 4
-    assert c["overflowed_builds"] == c["builds"]
-    assert c["overflow_by_flag"] == {f: c["builds"] * v
+    if path == "cycles":
+        assert c["overflowed_builds"] == c["builds"]
+    else:
+        assert c["overflowed_builds"] == c["builds_redone"] == 1
+        assert c["builds"] == c["rebuilds"] + 1
+        assert c["cap_growths"] >= 1
+        assert c["caps"]["near"] > c["demand_max"]["near"] > 16
+    assert c["overflow_by_flag"] == {f: c["overflowed_builds"] * v
                                      for f, v in want.items()}
     (loop,) = (sim._loops or sim._cycles).values()
     graphs = ([loop._rebuild_graph] if path == "adaptive"
@@ -250,13 +259,17 @@ def test_cli_run_prints_the_counters(capsys):
     line = [l for l in err.splitlines() if l.startswith("counters: ")]
     assert len(line) == 1
     c = json.loads(line[0][len("counters: "):])
-    # step 0 is a per-step rebuild, counted nowhere; then run_scan calls
-    # of 4 and 4 steps
-    assert c["start_rebuilds"] == 2
+    # step 0 is a run_scan call of one step on the adaptive runner; then
+    # run_scan calls of 4 and 4 steps
+    assert c["start_rebuilds"] == 3
     assert c["rebuilds"] == c["start_rebuilds"] + c["horizon_rebuilds"]
     assert c["builds"] == c["rebuilds"]
+    assert c["step_builds"] == 0
     assert set(c["overflow_by_flag"]) == set(tsim.BUILD_FLAGS)
-    assert c["overflowed_builds"] == 0
+    assert c["overflowed_builds"] == c["builds_redone"] == 0
+    assert c["cap_growths"] == 0
+    assert set(c["caps"]) == set(c["demand_max"]) == set(tsim.DEMANDS)
+    assert all(c["demand_max"][k] <= c["caps"][k] for k in tsim.DEMANDS)
 
 
 def test_cli_bench_trace_holds_the_program_spans(tmp_path, capsys):
