@@ -18,12 +18,20 @@ plain version (13 arrays, 5 flags) at the 100k and 1M start states, the
 1M first rebuild's skins, a uniform skin, the tools' config and small
 caps (every overflow flag and the window cap's whole-child drop), one
 launch a call, its time beside the plain version's and its bound at both
-benchmark cells' shapes.  Then it drives the paths of
+benchmark cells' shapes, then [tables]: the table-build kernel
+(csrc/band_tables.cu) bit for bit against its plain version in every
+live row and count at the 1M start state, the 1M first rebuild, the
+tools' config, the Plummer sphere's grown caps (a near list past 8,192
+entries) and a build with empty lists and pad ids, both table sweeps
+equal on its tables and the plain ones, one launch a call, its time
+beside the plain version's and its bound.  Then it drives the paths of
 the v5_bench preset (N = 1,000,000, force_tile 512, no_ss) with every
 kernel's launch count (ops/cuda/launch.reset, .counts) zeroed before each
-and read after it; wherever bands are built, the classifier must launch
-once a build (a step, a rebuild, a cycle, an ensemble member, a sharded
-rebuild), and once in each graph that builds, never in an inner step:
+and read after it; wherever bands are built, the classifier and the
+table build must launch once a build (a step, a rebuild, a cycle, an
+ensemble member, a sharded rebuild), and once in each graph that builds,
+the classifier never in an inner step, the table build only in a moment
+refresh's:
   [main]   the per-step rebuild, ``Simulation(cfg).step`` (a captured
            CUDA graph): one warm-up (the capture) and three timed steps,
            a profile (taken after [graphs], below), a per-phase
@@ -172,6 +180,7 @@ from nbody_tpu_torch.init import make_initial_state
 from nbody_tpu_torch.ops import bbox, forces, integrate, panel
 from nbody_tpu_torch.ops.cells import build_source_cells
 from nbody_tpu_torch.ops.cuda import build, classify, forces as kern
+from nbody_tpu_torch.ops.cuda import tables as ktables
 from nbody_tpu_torch.ops.cuda import launch as klaunch
 from nbody_tpu_torch.ops.cuda import panel as panel_kern
 from nbody_tpu_torch.tools import (
@@ -466,7 +475,7 @@ def phase_breakdown(cfg, state):
 
     supers, ss, bands = timed("classify", band_lists)
     tables = timed("tables", lambda: forces.build_cell_tables(cells, supers,
-                                                              ss, bands))
+                                                              ss, bands, cfg))
     acc = timed("far", lambda: kern.far_sweep(ps, ss, cfg))
     acc = acc + timed("table", lambda: kern.table_sweep(ps, tables, cfg))
     acc = acc + timed("near", lambda: kern.near_span(
@@ -737,15 +746,28 @@ def runner_phase(base, steps, chunk=32):
     return launches, errs, timing, differ, res
 
 
+def check_built(label, launches, builds, table_builds=None):
+    """Raise unless `launches` hold one classifier launch a band build
+    and one table build a band build (`table_builds`, when moment
+    refreshes build tables too)."""
+    if table_builds is None:
+        table_builds = builds
+    if launches["band_classify"] != builds:
+        raise RuntimeError(f"[{label}] {launches['band_classify']} "
+                           f"classifier launches for {builds} band builds")
+    if launches["table_build"] != table_builds:
+        raise RuntimeError(f"[{label}] {launches['table_build']} table "
+                           f"builds, not {table_builds}")
+
+
 def check_runner_launches(launches, steps, rebuilds=None):
     """The adaptive runner's launches over `steps` steps, as counted
     under graph replay too: one near sweep a step, one far and one table
     sweep a far+mid refresh, between one refresh and one a step, and,
-    given the `rebuilds`, one classifier launch a rebuild."""
-    if rebuilds is not None and launches["band_classify"] != rebuilds:
-        raise RuntimeError(f"classifier launches "
-                           f"{launches['band_classify']} != {rebuilds} "
-                           f"rebuilds")
+    given the `rebuilds`, one classifier launch and one table build a
+    rebuild."""
+    if rebuilds is not None:
+        check_built("runner", launches, rebuilds)
     if launches["near_span"] != steps:
         raise RuntimeError(f"near launches {launches['near_span']} != "
                            f"{steps} steps")
@@ -821,12 +843,18 @@ GRAPH_MAIN_STEPS = 5
 GRAPH_4M_STEPS = 16
 
 
-def tree_tensors(x):
-    """The tensors of a nested tuple (a loop's `built`), in order."""
+def tree_tensors(x, near_cap):
+    """The tensors of a nested tuple (a loop's `built`), in order; a
+    TableSet's planes with every row outside its live ranges zeroed, since
+    no build specifies those rows (forces.TableSet)."""
+    if isinstance(x, forces.TableSet):
+        live = forces.live_rows(x.near_cnt, x.row_cnt, near_cap,
+                                x.tx.shape[1])
+        return [torch.where(live, p, 0.0) for p in x[:4]] + list(x[4:])
     if isinstance(x, torch.Tensor):
         return [x]
     if isinstance(x, tuple):
-        return [t for y in x for t in tree_tensors(y)]
+        return [t for y in x for t in tree_tensors(y, near_cap)]
     return []
 
 
@@ -867,15 +895,24 @@ def graph_launches(g):
 
 def check_builds(label, per_graph):
     """Raise unless each graph of `per_graph` ({graph: its launches a
-    replay, None before its capture}) launches the band classifier once
-    if it builds bands (a rebuild, a step or a cycle) and never if not
-    (an inner step)."""
+    replay, None before its capture}) launches the band classifier and
+    the table build once if it builds bands (a rebuild, a step or a
+    cycle) and the classifier never if not (an inner step), whose tables
+    are built only by a moment refresh (the refresh_moments loop's
+    "inner refreshed", once)."""
     for g, d in per_graph.items():
         want = 0 if g.startswith("inner") else 1
-        if d is not None and d["band_classify"] != want:
+        if d is None:
+            continue
+        if d["band_classify"] != want:
             raise RuntimeError(f"[{label}] graph {g!r} launches the "
                                f"classifier {d['band_classify']} times a "
                                f"replay, not {want}")
+        want += g == "inner refreshed"
+        if d["table_build"] != want:
+            raise RuntimeError(f"[{label}] graph {g!r} launches the table "
+                               f"build {d['table_build']} times a replay, "
+                               f"not {want}")
 
 
 def memory_of(fn):
@@ -1019,7 +1056,8 @@ def graphs_phase(cfg, gate):
                     f"|diff| {worst:.3e} past eager's own {ee_max:.3e}")
     g_rows, g_max = state_diff(ab["graphed"][0][2][0], e1)
     (e_loop,), (g_loop,) = loops["eager"].values(), loops["graphed"].values()
-    built = list(zip(tree_tensors(e_loop.built), tree_tensors(g_loop.built)))
+    built = list(zip(tree_tensors(e_loop.built, e_loop.cfg.near_cap),
+                     tree_tensors(g_loop.built, g_loop.cfg.near_cap)))
     built_same = sum(same_bits(a, b) for a, b in built)
     ints_same = all(same_bits(a, b) for a, b in built
                     if not a.is_floating_point())
@@ -1029,10 +1067,7 @@ def graphs_phase(cfg, gate):
         f"bit-equal, every integer one {'equal' if ints_same else 'NOT'}")
     if not ints_same or (ee_max == 0 and (g_rows or built_same < len(built))):
         raise RuntimeError("[graphs] graphed run parts from eager")
-    if launches["graphed"][0]["band_classify"] != e_rb:
-        raise RuntimeError(f"[graphs] classifier launches a call "
-                           f"{launches['graphed'][0]['band_classify']}, "
-                           f"rebuilds {e_rb}")
+    check_built("graphs", launches["graphed"][0], e_rb)
     ms = {k: [c[0] for c in v] for k, v in ab.items()}
     log(f"[graphs] {GRAPH_STEPS}-step calls, eager/graphed/graphed/eager "
         f"(ms): {ms['eager'][0]:.1f} / {ms['graphed'][0]:.1f} / "
@@ -1121,11 +1156,10 @@ def graphs_phase(cfg, gate):
         if not same or n_sync:
             raise RuntimeError(f"[graphs] per-step rebuild at {label}: "
                                f"bit-equal {same}, {n_sync} syncs")
-        builds = {c[1]["band_classify"] for v in ab.values() for c in v}
-        if builds != {n_steps}:
-            raise RuntimeError(f"[graphs] per-step rebuild at {label}: "
-                               f"classifier launches a call {builds}, "
-                               f"{n_steps} steps")
+        for v in ab.values():
+            for c in v:
+                check_built(f"graphs per-step rebuild at {label}", c[1],
+                            n_steps)
         check_builds(f"graphs {label}",
                      {"step": per_step[label]["launches_per_graph"]})
         del sim, ic, ab, want, st, gstep
@@ -1257,7 +1291,8 @@ def cycles_path():
     check_finite("cycles", res.pop("state"))
     refreshes = n_cycles * (k // r) + rem // simulation._cycle_hold(c, rem)
     want = {"far_sweep": refreshes, "table_sweep": refreshes,
-            "near_span": CYCLE_STEPS, "band_classify": n_cycles + (rem > 0)}
+            "near_span": CYCLE_STEPS, "band_classify": n_cycles + (rem > 0),
+            "table_build": n_cycles + (rem > 0)}
     if res["launches"] != want:
         raise RuntimeError(f"[graph paths] cycle launches {res['launches']}, "
                            f"the schedule's {want}")
@@ -1463,7 +1498,11 @@ def tools_phase(base, state, step, e_hot):
 
     # the kernels at the tools' own shapes: force_tile 256, super-supers,
     # the hot state's skinned bands (the largest live counts they make)
-    ps, ms, ss, bands, tables = prof_nearwin.build(hot, ncfg, True)
+    ins, _, _, (ps, ms, ss, bands, tables) = tables_inputs(
+        lambda: prof_nearwin.build(hot, ncfg, True))
+    tables_check("kernels tools", *ins, ncfg, ps)
+    log("[kernels tools] the table-build kernel bit for bit against plain "
+        "in every live row, the table sweeps equal on both")
     near_pairs_report("kernels tools", ncfg, bands)
     calls = kernel_calls(ncfg, ps, ms, ss, bands, tables)
     errs, differ = compare(calls, "kernels tools", (ps, ss, ncfg))
@@ -1788,10 +1827,9 @@ def cli_phase():
                                if l.startswith(tag)][-1][len(tag):])
         builds = counters["builds"] + counters["step_builds"] + 1
         log(f"[cli run] {builds} band builds, "
-            f"{res['launches_run']['band_classify']} classifier launches")
-        if res["launches_run"]["band_classify"] != builds:
-            raise RuntimeError("[cli run] a classifier launch per band build "
-                               "expected")
+            f"{res['launches_run']['band_classify']} classifier launches, "
+            f"{res['launches_run']['table_build']} table builds")
+        check_built("cli run", res["launches_run"], builds)
         with open(dump) as f:
             head = [next(f) for _ in range(4)]
         want = ["# Barnes-Hut N-Body Simulation Results\n",
@@ -2222,12 +2260,16 @@ def shard_phase():
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ranks[0]["launches"]}
     check_launches("shard", launches)
-    # a classifier launch a sharded rebuild, on every rank and in one process
-    builds = [(r["launches"]["band_classify"], r["rebuilds"]) for r in ranks]
-    builds.append((launches1["band_classify"], want_rb))
-    if any(n != rb for n, rb in builds):
-        raise RuntimeError(f"[shard] (classifier launches, rebuilds) of each "
-                           f"rank and of the single process: {builds}")
+    # a classifier launch and a table build a sharded rebuild, on every
+    # rank and in one process
+    builds = [(r["launches"]["band_classify"], r["launches"]["table_build"],
+               r["rebuilds"]) for r in ranks]
+    builds.append((launches1["band_classify"], launches1["table_build"],
+                   want_rb))
+    if any(n != rb or nt != rb for n, nt, rb in builds):
+        raise RuntimeError(f"[shard] (classifier launches, table builds, "
+                           f"rebuilds) of each rank and of the single "
+                           f"process: {builds}")
     log(f"[shard] rank 0's slab after the last rebuild: {r0['slab']}; "
         f"s_valid per rebuild "
         f"{[s['s_valid'] for s in r0['steps'] if s['rebuild']]}; per rebuild "
@@ -2312,10 +2354,7 @@ def ensemble_phase():
     klaunch.reset()
     out, ms = timed_ms(lambda: step(batched))
     launches = launches_since_reset("ensemble")
-    if launches["band_classify"] != ENSEMBLE_MEMBERS:
-        raise RuntimeError(f"[ensemble] {launches['band_classify']} "
-                           f"classifier launches for {ENSEMBLE_MEMBERS} "
-                           f"members")
+    check_built("ensemble", launches, ENSEMBLE_MEMBERS)
     _, n_sync = count_syncs(lambda: step(batched))
     same = []
     for e, member in enumerate(members):
@@ -2621,6 +2660,177 @@ def classify_phase():
     return row
 
 
+# [tables]: the cases the table-build kernel is held against its plain
+# version in, bit for bit in every live row (ms, plain ms and bound are
+# kept for the three keyed ones)
+TABLES_CASES = {
+    "1M disk start state": "1m",
+    "1M first rebuild (adaptive_drift skins)": "skinned",
+    "1M tools config (tile 256, super-supers)": None,
+    "1M Plummer first rebuild, grown caps": "plummer",
+    "empty lists and pad ids": None,
+}
+
+
+def tables_inputs(fn):
+    """((cells, supers, ss, bands), cfg, targets, fn()'s result) of fn()'s
+    one band build: the table build's inputs, and build_bands' config and
+    sorted, tile-padded positions."""
+    seen = {"bands": [], "tables": []}
+    real_bands, real_tables = forces.build_bands, forces.build_cell_tables
+
+    def spy_bands(pos_s, mass_s, codes_s, cfg, *a, **kw):
+        seen["bands"].append((cfg, pos_s))
+        return real_bands(pos_s, mass_s, codes_s, cfg, *a, **kw)
+
+    def spy_tables(*a):
+        seen["tables"].append(a[:4])
+        return real_tables(*a)
+
+    forces.build_bands, forces.build_cell_tables = spy_bands, spy_tables
+    try:
+        out = fn()
+    finally:
+        forces.build_bands, forces.build_cell_tables = real_bands, real_tables
+    if len(seen["bands"]) != 1 or len(seen["tables"]) != 1:
+        raise RuntimeError(f"{len(seen['bands'])} band builds, "
+                           f"{len(seen['tables'])} table builds, not one")
+    return seen["tables"][0], *seen["bands"][0], out
+
+
+def padded_lists(cells, supers, ss, bands):
+    """`bands` with empty lists and pad ids: each list (and in every 7th
+    tile all five) emptied in a quarter of the tiles, and pad ids, at the
+    pad and past it, in the first live lane of each list in a third."""
+    t = torch.arange(bands.near_cnt.shape[0], device=bands.near_cnt.device)
+    pads = {"ss": ss.gmass.shape[0], "sup": supers.gmass.shape[0] + 3,
+            "mid": cells.gmass.shape[0], "cmid": 8 * cells.gmass.shape[0],
+            "near": 8 * cells.gmass.shape[0] + 7}
+    out = {}
+    for j, (ls, pad) in enumerate(pads.items()):
+        cnt = getattr(bands, f"{ls}_cnt")
+        out[f"{ls}_cnt"] = torch.where((t % 4 == j % 4) | (t % 7 == 0), 0,
+                                       cnt)
+        idx = getattr(bands, f"{ls}_idx").clone()
+        idx[:, 0] = torch.where(t % 3 == j % 3, pad, idx[:, 0])
+        out[f"{ls}_idx"] = idx
+    return bands._replace(**out)
+
+
+def tables_case(label):
+    """(cells, supers, ss, bands, cfg, targets) of one TABLES_CASES
+    build on the card."""
+    from nbody_tpu_torch.init import disk_galaxy_msvc, plummer_henon
+
+    c1m = PRESETS["v5_bench"].replace(check_overflow=False)
+    if label.startswith("1M Plummer"):
+        plum = PRESETS["lonestar_bh"].replace(check_overflow=False)
+        st = plummer_henon(plum.n, CLASSIFY_SEED, plum.g, device=DEVICE)
+        grown, _ = grown_first_rebuild(plum, st)
+        fn = first_rebuild_build(grown, st)
+    else:
+        st = disk_galaxy_msvc(c1m.n, CLASSIFY_SEED, c1m.g, device=DEVICE)
+        if label.startswith("1M first rebuild"):
+            fn = first_rebuild_build(c1m, st)
+        elif label.startswith("1M tools"):
+            ncfg = prof_nearwin.make_config(c1m.n)
+            fn = functools.partial(prof_nearwin.build, st, ncfg, True)
+        else:
+            fn = per_step_build(c1m, st)
+    ins, cfg, ps, _ = tables_inputs(fn)
+    if label.startswith("empty"):
+        ins = ins[:3] + (padded_lists(*ins),)
+    return (*ins, cfg, ps)
+
+
+def tables_bound_ms(tables, near_cap):
+    """The least ms of a table build: its live rows written once at 16 B,
+    the lists' live entries and the counts read once, over the HBM
+    peak."""
+    near = torch.clamp(tables.near_cnt.to(torch.int64), 0, near_cap)
+    items = (tables.row_cnt.to(torch.int64) - near_cap) // 9
+    live = int((near + 9 * items).sum())
+    nbytes = 16 * live + 4 * int((near + items).sum()) + 28 * near.numel()
+    return 1e3 * nbytes / PEAK_BYTES, live
+
+
+def tables_check(label, cells, supers, ss, bands, cfg, ps, plain_sweep=True):
+    """Raise unless the kernel's tables equal the plain build's bit for bit
+    in every live row and count (one launch), and the table sweep, the
+    kernel's and (with `plain_sweep`) the plain one, gives the same forces
+    on both; returns (kernel tables, plain tables)."""
+    klaunch.reset()
+    got = ktables.build_cell_tables(cells, supers, ss, bands)
+    want = forces.build_cell_tables_torch(cells, supers, ss, bands)
+    sync()
+    if ktables.LAUNCHES["table_build"] != 1:
+        raise RuntimeError(f"[{label}] launches {ktables.LAUNCHES}")
+    near_cap = bands.near_idx.shape[1]
+    bad = ktables.live_diff(got, want, near_cap)
+    for f in bad:
+        g, w = getattr(got, f), getattr(want, f)
+        if f in forces.TableSet._fields[:4]:
+            live = forces.live_rows(want.near_cnt, want.row_cnt, near_cap,
+                                    w.shape[1])
+            g, w = (torch.where(live, x.view(torch.int32), 0) for x in (g, w))
+        rows = (g != w).reshape(g.shape[0], -1).any(dim=1).nonzero()[:, 0]
+        log(f"[{label}] {f}: {rows.numel()} tiles differ, first "
+            f"{int(rows[0]) if rows.numel() else '-'}")
+    if bad:
+        raise RuntimeError(f"[{label}] kernel tables differ from plain in "
+                           f"{bad}")
+    sweeps = {"kernel": kern.table_sweep}
+    if plain_sweep:
+        sweeps["plain"] = forces.table_sweep_torch
+    for name, fn in sweeps.items():
+        a, b = (fn(ps, x, cfg) for x in (got, want))
+        if not same_bits(a, b):
+            raise RuntimeError(f"[{label}] the {name} table sweep differs "
+                               f"on the kernel's tables")
+    return got, want
+
+
+def tables_phase():
+    """[tables]: the table-build kernel bit for bit against its plain
+    version in every live row in each of TABLES_CASES, one launch a
+    build, the table sweeps equal on both tables; its time beside the
+    plain version's and its bound in the keyed cases.  Returns the kernel
+    JSON row (main adds its launches)."""
+    row = {"name": "band_tables", "counted_as": "table_build", "path": "main",
+           "route": "cuda", "source": "nbody_tpu_torch/csrc/band_tables.cu",
+           "replaces": None, "library_ms": None}
+    for label, key in TABLES_CASES.items():
+        cells, supers, ss, bands, cfg, ps = tables_case(label)
+        near_cap = bands.near_idx.shape[1]
+        plummer = label.startswith("1M Plummer")
+        got, want = tables_check(f"tables {label}", cells, supers, ss, bands,
+                                 cfg, ps, plain_sweep=not plummer)
+        bound, live = tables_bound_ms(got, near_cap)
+        t, width = got.tx.shape
+        log(f"[tables {label}] bit for bit in every live row (kernel and "
+            f"plain table sweeps equal on both); tiles {t}, row width "
+            f"{width}, live rows {live} ({100 * live / (t * width):.1f}% of "
+            f"the planes), near max {int(got.near_cnt.max())}, blocks a "
+            f"tile {ktables.splits(width)}")
+        if plummer and int(got.near_cnt.max()) <= 8192:
+            raise RuntimeError("[tables] the Plummer case lists no near "
+                               "list past 8,192 entries")
+        del want
+        if key is None:
+            continue
+        k_ms = event_ms(lambda: ktables.build_cell_tables(
+            cells, supers, ss, bands), 20)
+        p_ms = event_ms(lambda: forces.build_cell_tables_torch(
+            cells, supers, ss, bands), 3)
+        row.update({f"ms_{key}": k_ms, f"plain_ms_{key}": p_ms,
+                    f"bound_ms_{key}": bound, f"bound_by_{key}": "bytes",
+                    f"live_rows_{key}": live})
+        log(f"[tables {label}] kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms "
+            f"({p_ms / k_ms:.0f}x), bound {bound:.4f} ms (bytes, "
+            f"{100 * bound / k_ms:.1f}% of it reached)")
+    return row
+
+
 # [bench]: python -m nbody_tpu_torch.bench at v5_bench in full (1024
 # drift steps in chunks of 32, the selfcheck), then BASELINE.json's
 # config 2 (N = 100k, a rebuild every step) and bh_4m on the one card
@@ -2678,11 +2888,8 @@ def bench_phase(runner_drift):
             f"pools); {secs:.1f} s")
         log(f"[bench {label}] {lines[0]}")
         check_launches(f"bench {label}", res["launches"])
-        builds = TIMED_CALLS * res["rebuilds"]
-        if res["launches"]["band_classify"] != builds:
-            raise RuntimeError(f"[bench {label}] "
-                               f"{res['launches']['band_classify']} classifier "
-                               f"launches for {builds} band builds")
+        check_built(f"bench {label}", res["launches"],
+                    TIMED_CALLS * res["rebuilds"])
         out[label] = res
     got, want = (f"{x:.6e}" for x in (out["v5_bench"]["drift"],
                                       runner_drift))
@@ -2728,6 +2935,7 @@ def main() -> int:
     geo_err = {k: v[0] for k, v in geo.items()}
     edges_differ = far_edges_phase(base)
     classify_row = classify_phase()
+    tables_row = tables_phase()
 
     # --- main path: v5_bench, N = 1M, through Simulation.step ------------
     cfg = base
@@ -2754,9 +2962,7 @@ def main() -> int:
     for k, v in launches_step.items():
         if v == 0:
             raise RuntimeError(f"main path never launched {k}")
-    if launches_step["band_classify"] != len(step_ms):
-        raise RuntimeError(f"main path: {launches_step['band_classify']} "
-                           f"classifier launches in {len(step_ms)} steps")
+    check_built("main", launches_step, len(step_ms))
     check_finite("main", state)
     med, worst = direct_check(prev, state.acc, cfg)
     log(f"[main] acceleration vs float64 direct sum at 4096 bodies: median "
@@ -2852,7 +3058,8 @@ def main() -> int:
 
     tile_order_report("kernels main", bands, tables)
     classify_row.update(launch_fields("band_classify"))
-    main_rows = rows + [classify_row]
+    tables_row.update(launch_fields("table_build"))
+    main_rows = rows + [classify_row, tables_row]
 
     rows += probe_phase()
 
@@ -2872,7 +3079,7 @@ def main() -> int:
     shard_rows, shard_res = shard_phase()
     bench_res = bench_phase(gate["drift"])
     for row in main_rows:
-        k = row["name"]
+        k = row.get("counted_as", row["name"])
         row.update(launches_bench=bench_res["v5_bench"]["launches"][k],
                    launches_tools=launches_tools[k],
                    launches_cli_run=cli_res["launches_run"][k],
@@ -2893,7 +3100,7 @@ def main() -> int:
         "shard": shard_res, "tools": tools_res, "bench": bench_res,
         "graphs": graphs_res, "graph_paths": paths_res}))
 
-    print(json.dumps({"kernels": rows + [classify_row]}))
+    print(json.dumps({"kernels": rows + [classify_row, tables_row]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

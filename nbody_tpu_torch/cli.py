@@ -68,7 +68,7 @@ def _report_launches(device) -> None:
     if device.type == "cuda":
         # importing the wrappers registers their counts
         from nbody_tpu_torch.ops.cuda import (  # noqa: F401
-            classify, forces, launch)
+            classify, forces, launch, tables)
 
         print(f"kernel launches: {json.dumps(launch.counts())}",
               file=sys.stderr)

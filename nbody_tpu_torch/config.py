@@ -150,7 +150,10 @@ class SimConfig:
     @property
     def table_bytes(self) -> int:
         """Device-memory footprint of ONE TableSet (4 fp32 planes of
-        near_cap + 9*(ss+sup+mid+cmid) rows per tile)."""
+        near_cap + 9*(ss+sup+mid+cmid) rows per tile).  The planes are
+        allocated at the caps' width, whatever the build writes: the CUDA
+        build writes only a tile's live rows, the sweeps address a row as
+        tile * width."""
         rows = self.near_cap + 9 * (
             self.ss_cap + self.sup_cap + self.mid_cap + self.cmid_cap
         )

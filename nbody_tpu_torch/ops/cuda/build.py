@@ -59,6 +59,13 @@ LIBRARIES = {
             # args (a ClassifyArgs, ops/cuda/classify.py), stream
             "nbody_band_classify": [_P, _P],
         }),
+    "band_tables": Library(
+        _PKG / "csrc" / "band_tables.cu",
+        [],
+        {
+            # args (a TablesArgs, ops/cuda/tables.py), stream
+            "nbody_band_tables": [_P, _P],
+        }),
     "panel": Library(
         _PKG / "csrc" / "panel.cu",
         [],

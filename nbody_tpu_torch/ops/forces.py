@@ -675,8 +675,10 @@ def cell_band_lists_torch(tgt_subs: GroupInfo, ss: Supers, supers: Supers,
 class TableSet(NamedTuple):
     """Per-tile band tables, planar [T, R] with R = near_cap +
     9*(ss_cap+sup_cap+mid_cap+cmid_cap): [near anti rows (live prefix
-    near_cnt) | packed 9-row monopole items (live up to row_cnt)]; every
-    other row is zero."""
+    near_cnt) | packed 9-row monopole items (live up to row_cnt)].  Only
+    the live ranges [0, near_cnt) and [near_cap, row_cnt) of a row are
+    specified: the CUDA build writes nothing else (the plain one writes
+    zeros there), and no sweep reads anything else."""
 
     tx: torch.Tensor        # [T, R] source x
     ty: torch.Tensor        # [T, R] source y
@@ -686,8 +688,31 @@ class TableSet(NamedTuple):
     near_cnt: torch.Tensor  # [T] int32 live near anti rows
 
 
-def build_cell_tables(cells, supers: Supers, ss: Supers,
-                      bands: CellBands) -> TableSet:
+def live_rows(near_cnt: torch.Tensor, row_cnt: torch.Tensor, near_cap: int,
+              width: int) -> torch.Tensor:
+    """[T, width] bool: the rows of each tile's table that a sweep reads,
+    [0, near_cnt) and [near_cap, row_cnt)."""
+    lane = torch.arange(width, device=near_cnt.device)
+    return torch.where(lane < near_cap, lane < near_cnt[:, None],
+                       lane < row_cnt[:, None])
+
+
+def build_cell_tables(cells, supers: Supers, ss: Supers, bands: CellBands,
+                      cfg: SimConfig) -> TableSet:
+    """The per-tile tables (build_cell_tables_torch): the CUDA kernel of
+    ``ops/cuda/tables.py`` when ``cfg.use_pallas`` is set (on CUDA
+    tensors; the live rows and counts bit for bit the plain version's,
+    no other row written), the plain version otherwise."""
+    fn = build_cell_tables_torch
+    if cfg.use_pallas:
+        from nbody_tpu_torch.ops.cuda import tables as kern_tables
+
+        fn = kern_tables.build_cell_tables
+    return fn(cells, supers, ss, bands)
+
+
+def build_cell_tables_torch(cells, supers: Supers, ss: Supers,
+                            bands: CellBands) -> TableSet:
     """Gather each tile's table rows [x, y, z, G*m]: a negated row per
     NEAR child (its exact P2P comes from the near sweep), and a 9-row
     item per failing super-super / super / cell / cmid child (its 8
@@ -789,19 +814,24 @@ def far_sweep_torch(pos_s: torch.Tensor, supers: Supers,
 
 def table_sweep_torch(tgt_pos: torch.Tensor, tables: TableSet,
                       cfg: SimConfig) -> torch.Tensor:
-    """Each tile's targets against its table row, up to the longest live
-    row (rows past row_cnt are zero)."""
+    """Each tile's targets against its table row up to the longest live
+    row, every row outside the tile's live ranges [0, near_cnt) and
+    [near_cap, row_cnt) read as zero whatever it holds (TableSet)."""
     b = cfg.force_tile
     soft = soft_term(cfg)
     t = tgt_pos.shape[0] // b
     rows = max(int(tables.row_cnt.max()), 1)
     pb = tgt_pos.reshape(t, b, 3)
     tc = max(1, _PANEL_ELEMS // (b * rows))
-    return torch.cat([
-        _tile_panel(pb[i:i + tc], tables.tx[i:i + tc, :rows],
-                    tables.ty[i:i + tc, :rows], tables.tz[i:i + tc, :rows],
-                    tables.tm[i:i + tc, :rows], soft)
-        for i in range(0, t, tc)]).reshape(-1, 3)
+    width = tables.tx[:, :rows].shape[1]
+
+    def panel(i):
+        live = live_rows(tables.near_cnt[i:i + tc], tables.row_cnt[i:i + tc],
+                         cfg.near_cap, width)
+        q = [torch.where(live, p[i:i + tc, :rows], 0.0) for p in tables[:4]]
+        return _tile_panel(pb[i:i + tc], *q, soft)
+
+    return torch.cat([panel(i) for i in range(0, t, tc)]).reshape(-1, 3)
 
 
 def near_correction_torch(tgt_pos: torch.Tensor, src_pos: torch.Tensor,
@@ -865,7 +895,7 @@ def build_bands(pos_s: torch.Tensor, mass_s: torch.Tensor,
                                  bits=bits)
     bands = cell_band_lists(tgt_subs, ss, supers, cells, cfg, skin=skin,
                             demand=demand)
-    tables = build_cell_tables(cells, supers, ss, bands)
+    tables = build_cell_tables(cells, supers, ss, bands, cfg)
     return cells, ss, bands, tables
 
 
@@ -912,7 +942,7 @@ def refresh_farmid(pos_live: torch.Tensor, mass_s: torch.Tensor,
     )
     supers_r = make_supers(cells_r)
     ss_r = make_ss(supers_r, cfg)
-    tables_r = build_cell_tables(cells_r, supers_r, ss_r, bands)
+    tables_r = build_cell_tables(cells_r, supers_r, ss_r, bands, cfg)
     return apply_farmid(pos_live if tgt_pos is None else tgt_pos, ss_r,
                         tables_r, cfg)
 

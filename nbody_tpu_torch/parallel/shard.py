@@ -211,7 +211,7 @@ def _classify_slab(pos_s, mass_s, codes_s, cfg: SimConfig, mesh: Mesh,
     tgt_subs = forces.target_subspheres(my_pos, b, drift=my_drift,
                                         codes=codes_own, bits=cfg.morton_bits)
     bands = forces.cell_band_lists(tgt_subs, ss, supers, cells, cfg)
-    tables = forces.build_cell_tables(cells, supers, ss, bands)
+    tables = forces.build_cell_tables(cells, supers, ss, bands, cfg)
     # config-5 invariant: classification output is the LOCAL slab only
     assert bands.sup_idx.shape[0] == m // b, (
         "per-rank classification must cover exactly T/D target blocks")
@@ -543,7 +543,8 @@ def _refresh_farmid_slab(p_mid, my_pos_live, mass_s, rctx, bands,
                                 box_size, mesh, drift=drift)
     supers_r = forces.make_supers(cells_r)
     ss_r = forces.make_ss(supers_r, cfg)
-    tables_r = forces.build_cell_tables(cells_r, supers_r, ss_r, bands)
+    tables_r = forces.build_cell_tables(cells_r, supers_r, ss_r, bands,
+                                         cfg)
     return forces.apply_farmid(p_mid, ss_r, tables_r, cfg)
 
 

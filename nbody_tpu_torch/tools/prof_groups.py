@@ -59,7 +59,8 @@ def phases(state: ParticleState, cfg: SimConfig, iters: int = 6) -> dict:
         out["subspheres"], out["supersupers"], out["supers"], out["cells"],
         cfg))
     run("tables", lambda: forces.build_cell_tables(
-        out["cells"], out["supers"], out["supersupers"], out["band_lists"]))
+        out["cells"], out["supers"], out["supersupers"], out["band_lists"],
+        cfg))
     bands = out["band_lists"]
     return {"ms": times, "n_cells": int(out["cells"].n_cells),
             "tiles": bands.win_cnt.shape[0],

@@ -67,7 +67,8 @@ def phases(state: ParticleState, cfg: SimConfig, iters: int = 8) -> dict:
         ps, cfg.force_tile, drift=drift, codes=cs, bits=cfg.morton_bits))
     bands = run("classify", lambda: forces.cell_band_lists(
         tgt, ss, supers, cells, cfg))
-    run("tables", lambda: forces.build_cell_tables(cells, supers, ss, bands))
+    run("tables", lambda: forces.build_cell_tables(cells, supers, ss, bands,
+                                                   cfg))
     run("FULL build_bands", lambda: forces.build_bands(ps, msp, cs, cfg,
                                                        drift=drift))
     return {"ms": ms_by, "n_cells": int(cells.n_cells),

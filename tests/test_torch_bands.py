@@ -150,7 +150,7 @@ def test_cell_band_lists_match(ref):
 
 
 def test_build_cell_tables_match(ref):
-    got = tforces.build_cell_tables(
+    got = tforces.build_cell_tables_torch(
         _nt(ref["cells"], tcells.SourceCells),
         _nt(ref["supers"], tforces.Supers), _nt(ref["ss"], tforces.Supers),
         _nt(ref["bands"], tforces.CellBands))

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from nbody_tpu_torch.ops import forces as tforces
-from nbody_tpu_torch.ops.cuda import classify, forces as kern
+from nbody_tpu_torch.ops.cuda import classify, forces as kern, tables
 from nbody_tpu_torch.ops.cuda import launch
 from nbody_tpu_torch.utils import graphs
 
@@ -51,9 +51,9 @@ def _record(self):
 
 @pytest.fixture
 def replayed(monkeypatch):
-    """Every Graphed captures through the stand-ins, and the plain sweeps
-    and the plain classifier count a launch per call as their kernels'
-    wrappers do."""
+    """Every Graphed captures through the stand-ins, and the plain sweeps,
+    the plain classifier and the plain table build count a launch per
+    call as their kernels' wrappers do."""
     monkeypatch.setattr(graphs, "capturable", lambda device: True)
     monkeypatch.setattr(graphs.Graphed, "_warm_up", lambda self: self.run())
     monkeypatch.setattr(graphs.Graphed, "_record", _record)
@@ -61,7 +61,8 @@ def replayed(monkeypatch):
             ("far_sweep_torch", kern.LAUNCHES, "far_sweep"),
             ("table_sweep_torch", kern.LAUNCHES, "table_sweep"),
             ("near_correction_torch", kern.LAUNCHES, "near_span"),
-            ("cell_band_lists_torch", classify.LAUNCHES, "band_classify")):
+            ("cell_band_lists_torch", classify.LAUNCHES, "band_classify"),
+            ("build_cell_tables_torch", tables.LAUNCHES, "table_build")):
         def counted(*a, _plain=getattr(tforces, attr), _counts=counts,
                     _name=name, **kw):
             _counts[_name] += 1
