@@ -21,36 +21,31 @@ the smooth far+mid component for R = cfg.hold_farmid steps (r-RESPA).
 The design history is in nbody_tpu/models/simulation.py.
 
 On CUDA the adaptive runner's rebuild and inner steps, each fixed-K
-cycle, and the per-step rebuild and the direct step of
-`Simulation.step` run as captured CUDA graphs (utils/graphs.Graphed)
-over buffers they own: the counterpart of the JAX package's one jitted
-program, with no per-kernel launch from the host.  The host keeps the
-schedule as integers and replays the graph each rebuild, cycle or step
-needs.
+cycle, and the per-step and direct steps run as captured CUDA graphs
+(utils/graphs.Graphed) over buffers they own, the counterpart of the JAX
+package's one jitted program; the host keeps the schedule as integers
+and replays the graph each rebuild, cycle or step needs.
 
-Band caps: every band build reports, beside its overflow flags
-(BUILD_FLAGS), what it demands of each capacity (DEMANDS).  The adaptive
-loop reads both with its validity horizon, and a build with a flag set is
-never swept: the loop grows the flagged caps (grown_config, within
-cfg.band_budget_gib), captures its graphs again and redoes the build, so
-no pair is dropped.  The caps it grew to last for the loop's life.  The
-per-step rebuild and the fixed-K cycles keep their caps; `Simulation.run`
-reads their flags at each frame's sync and raises on a build that dropped
-pairs.
+Band caps: every band build reports its overflow flags (BUILD_FLAGS) and
+what it demands of each capacity (DEMANDS) to its path's BuildTally.  The
+adaptive loop also reads each report with its validity horizon and never
+sweeps a flagged build: it grows the flagged caps (grown_config, within
+cfg.band_budget_gib), captures its graphs again and redoes the build.
+The per-step rebuild and the fixed-K cycles keep their caps;
+`Simulation.run` raises at a frame's sync on a build that dropped pairs.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.state import ParticleState, default_device
 from nbody_tpu_torch.ops import bbox, morton, forces, integrate as integ
-from nbody_tpu_torch.ops.cells import (CELL_DEMAND, build_source_cells,
-                                       capacity_demand)
+from nbody_tpu_torch.ops.cells import CELL_DEMAND, capacity_demand
 from nbody_tpu_torch.ops.tree import build_tree
 from nbody_tpu_torch.utils.graphs import Graphed, capturable
 from nbody_tpu_torch.utils.profiling import span
@@ -64,35 +59,22 @@ def sort_by_morton(pos: torch.Tensor, cfg: SimConfig):
     return codes_s, perm, lo, size
 
 
-def compute_bh_acc(pos: torch.Tensor, mass: torch.Tensor, cfg: SimConfig,
-                   force_fn: str = "tiled",
-                   stats: Optional[dict] = None) -> torch.Tensor:
-    """Barnes-Hut accelerations in the particles' original order.
-
-    force_fn: "tiled" (the production band decomposition, hand kernels
-    when cfg.use_pallas; `stats` receives its build's flags and demand,
-    build_report, under "report") or "reference" (the per-particle rope
-    walk over the escape-linearised tree; `stats` collects its iteration
-    and host-read counts)."""
+def _bh_acc(pos: torch.Tensor, mass: torch.Tensor, cfg: SimConfig,
+            force_fn: str, stats: Optional[dict] = None):
+    """compute_bh_acc's accelerations and the tiled path's build report
+    (_reported_build; None for the rope walk)."""
     if force_fn not in ("tiled", "reference"):
         raise ValueError(f"unknown force_fn {force_fn}")
     n = pos.shape[0]
     codes_s, perm, _, size = sort_by_morton(pos, cfg)
     pos_s, mass_s = pos[perm], mass[perm]
+    report = None
     if force_fn == "tiled":
         pos_p, mass_p, codes_p = forces.pad_sorted(pos_s, mass_s, codes_s,
                                                    cfg.force_tile)
-        if stats is None:
-            acc_s = forces.bh_forces_grouped(pos_p, mass_p, codes_p, cfg)[:n]
-        else:
-            demand = torch.zeros(len(forces.BAND_DEMAND), dtype=torch.int32,
-                                 device=pos.device)
-            cells, ss, bands, tables = forces.build_bands(
-                pos_p, mass_p, codes_p, cfg, demand=demand)
-            stats["report"] = build_report(build_flags(cells, bands), cells,
-                                           demand)
-            acc_s = forces.apply_bands(pos_p, mass_p, ss, bands, tables,
-                                       cfg)[:n]
+        (_, ss, bands, tables), report = _reported_build(pos_p, mass_p,
+                                                         codes_p, cfg)
+        acc_s = forces.apply_bands(pos_p, mass_p, ss, bands, tables, cfg)[:n]
     else:
         # the tree is 30-bit; a 63-bit key's top 30 bits are a prefix of
         # it, so the sorted order holds for the truncated codes
@@ -102,7 +84,19 @@ def compute_bh_acc(pos: torch.Tensor, mass: torch.Tensor, cfg: SimConfig,
         acc_s = forces.bh_forces_reference(pos_s, tree, cfg, stats=stats)
     out = torch.empty_like(acc_s)
     out[perm] = acc_s                   # back to the original order
-    return out
+    return out, report
+
+
+def compute_bh_acc(pos: torch.Tensor, mass: torch.Tensor, cfg: SimConfig,
+                   force_fn: str = "tiled",
+                   stats: Optional[dict] = None) -> torch.Tensor:
+    """Barnes-Hut accelerations in the particles' original order.
+
+    force_fn: "tiled" (the production band decomposition, hand kernels
+    when cfg.use_pallas) or "reference" (the per-particle rope walk over
+    the escape-linearised tree; `stats` collects its iteration and
+    host-read counts)."""
+    return _bh_acc(pos, mass, cfg, force_fn, stats)[0]
 
 
 def step_barnes_hut(state: ParticleState, cfg: SimConfig,
@@ -241,9 +235,9 @@ def next_envelope(s_valid: int, cfg: SimConfig) -> int:
 # the seven overflow flags of a band build, in the order of build_flags:
 # the five band lists', the adaptive cells' and the grandchild segments'
 BUILD_FLAGS = ("ss", "sup", "mid", "cmid", "near", "cells", "g2")
-# what a band build demands of each capacity, in the order of
-# build_report: the band lists and near windows (forces.BAND_DEMAND), the
-# cell slots and the grandchild segments (cells.CELL_DEMAND)
+# what a band build demands of each capacity, in the order of its report
+# (_reported_build): the band lists and near windows (forces.BAND_DEMAND),
+# the cell slots and the grandchild segments (cells.CELL_DEMAND)
 DEMANDS = forces.BAND_DEMAND + CELL_DEMAND
 # the flags of a build that swept coarser monopoles in place of what it
 # dropped (a grandchild overflow only sends children to exact P2P)
@@ -266,30 +260,60 @@ def build_flags(cells, bands) -> torch.Tensor:
                                              cells.overflow_g2])
 
 
-def build_report(flags: torch.Tensor, cells,
-                 band_demand: torch.Tensor) -> torch.Tensor:
-    """One band build's flags (build_flags) and demand, int64 [15]:
-    BUILD_FLAGS as 0 or 1, then DEMANDS (`band_demand` is the int32 [6]
-    that build_bands filled)."""
-    return torch.cat([flags.to(torch.int64), band_demand.to(torch.int64),
-                      capacity_demand(cells)])
+def _reported_build(pos_s, mass_s, codes_s, cfg: SimConfig, drift=None):
+    """build_bands on Morton-sorted, tile-padded inputs (with the skins
+    `drift`): (its four results, the build's report), the report an int64
+    [15] of BUILD_FLAGS as 0 or 1, then DEMANDS."""
+    demand = torch.zeros(len(forces.BAND_DEMAND), dtype=torch.int32,
+                         device=pos_s.device)
+    built = forces.build_bands(pos_s, mass_s, codes_s, cfg, drift=drift,
+                               demand=demand)
+    cells, _, bands, _ = built
+    return built, torch.cat([build_flags(cells, bands).to(torch.int64),
+                             demand.to(torch.int64), capacity_demand(cells)])
 
 
-def _count_build(counts: torch.Tensor, report: torch.Tensor) -> None:
-    """Add one build's report (build_report) to a device int64 [16] tally
-    in place: [0:7] the builds with each flag set, [7] those with any set,
-    [8:16] the largest demand of each kind.  Inside a captured graph, so
-    that every replay counts with no host read."""
-    flags = report[:len(BUILD_FLAGS)]
-    counts[:len(BUILD_FLAGS)].add_(flags)
-    counts[len(BUILD_FLAGS):len(BUILD_FLAGS) + 1].add_(flags.amax())
-    torch.maximum(counts[len(BUILD_FLAGS) + 1:], report[len(BUILD_FLAGS):],
-                  out=counts[len(BUILD_FLAGS) + 1:])
+class BuildCounts(NamedTuple):
+    """Band builds counted on the host, by name: the builds with each flag
+    set, those with any set, the largest demand of each kind."""
+    by_flag: dict
+    overflowed: int
+    demand_max: dict
+
+    def dropped(self) -> dict:
+        """The set flags that dropped pairs (_DROPPING), with counts."""
+        return {f: v for f, v in self.by_flag.items() if f in _DROPPING and v}
 
 
-def _new_tally(device) -> torch.Tensor:
-    return torch.zeros(len(BUILD_FLAGS) + 1 + len(DEMANDS), dtype=torch.int64,
-                       device=device)
+class BuildTally:
+    """Band builds' reports (_reported_build) tallied on the device in an
+    int64 [16] `counts`: [0:7] the builds with each flag set, [7] those
+    with any set, [8:16] the largest demand of each kind.  `add` needs no
+    host read, so a captured graph counts at every replay."""
+
+    _N = len(BUILD_FLAGS)
+
+    def __init__(self, device):
+        self.counts = torch.zeros(self._N + 1 + len(DEMANDS),
+                                  dtype=torch.int64, device=device)
+
+    def add(self, report: torch.Tensor) -> None:
+        n, flags, c = self._N, report[:self._N], self.counts
+        c[:n].add_(flags)
+        c[n:n + 1].add_(flags.amax())
+        torch.maximum(c[n + 1:], report[n:], out=c[n + 1:])
+
+    @classmethod
+    def read(cls, tallies) -> BuildCounts:
+        """The tallies of `tallies` but None in one host copy (none without
+        a tally): the counts summed, the demands maxed."""
+        tallies = [x for x in tallies if x is not None]
+        n, t = cls._N, [0] * (cls._N + 1 + len(DEMANDS))
+        if tallies:
+            s = torch.stack([x.counts for x in tallies])
+            t = torch.cat([s[:, :n + 1].sum(0), s[:, n + 1:].amax(0)]).tolist()
+        return BuildCounts(dict(zip(BUILD_FLAGS, t[:n])), t[n],
+                           dict(zip(DEMANDS, t[n + 1:])))
 
 
 def _round_cap(demand: int) -> int:
@@ -362,16 +386,16 @@ def grown_config(cfg: SimConfig, flags, demand) -> SimConfig:
 def _adaptive_rebuild_fn(cfg: SimConfig):
     """One adaptive band rebuild: Morton re-sort, the permutation applied
     to every per-particle field (and to the held far+mid acceleration
-    when it spans rebuilds), self-tuned skin envelopes, band build,
-    validity horizon and envelope feedback.
+    when it spans rebuilds), self-tuned skins, the reported band build
+    and the validity horizon.
 
     rebuild(pos, vel, mass, acc, orig, k_env, afm=None) returns
-    (fields, built, (s_valid, report)) with fields = (pos, vel, mass,
-    acc, orig, afm) in the new order (afm None when not given), built =
+    (fields, built, (s_valid, report)): fields = (pos, vel, mass, acc,
+    orig, afm) in the new order (afm None when not given), built =
     (cells, supers, bands, tables, rctx), build_bands' four results and
     what refresh_farmid needs, the validity horizon (a device int64
-    scalar) and the build's flags and demand (build_report).  It writes
-    nothing back: the caller picks the next envelope horizon."""
+    scalar) and the build's report (_reported_build).  It writes nothing
+    back: the caller picks the next envelope horizon."""
 
     def rebuild(pos, vel, mass, acc, orig, k_env, afm=None):
         codes_s, perm, box_lo, size = sort_by_morton(pos, cfg)
@@ -382,17 +406,12 @@ def _adaptive_rebuild_fn(cfg: SimConfig):
         v, a = _norms(vel), _norms(acc)
         drift = adaptive_drift(v, a, codes_s, size, cfg,
                                k=k_env.to(torch.float32))
-        demand = torch.zeros(len(forces.BAND_DEMAND), dtype=torch.int32,
-                             device=pos.device)
-        cells, supers, bands, tables = forces.build_bands(
-            pos, mass, codes_s, cfg, drift=drift, demand=demand)
+        built, report = _reported_build(pos, mass, codes_s, cfg, drift)
         s_valid = validity_horizon(v, a, drift, cfg)
         # what refresh_farmid needs to recompute moments at this cut
         rctx = (codes_s, drift, box_lo, size)
-        return ((pos, vel, mass, acc, orig, afm),
-                (cells, supers, bands, tables, rctx),
-                (s_valid, build_report(build_flags(cells, bands), cells,
-                                       demand)))
+        return ((pos, vel, mass, acc, orig, afm), (*built, rctx),
+                (s_valid, report))
 
     return rebuild
 
@@ -414,18 +433,31 @@ class _PaddedLoop:
         self.pos, self.vel, self.mass, self.acc, self.orig = (
             x.clone() for x in (pos, vel, mass, acc, orig))
 
-    def _load(self, state: ParticleState) -> None:
-        """`state`'s padded fields into the buffers; its padded row count
-        must be the loop's."""
+    def load(self, state: ParticleState) -> None:
+        """Start again from `state` of the loop's padded row count."""
         fields = _pad_cycle_state(state, self.cfg.force_tile)
         if fields[0].shape != self.pos.shape:
             raise ValueError(f"{state.n} bodies pad to {fields[0].shape[0]} "
                              f"rows, the loop has {self.pos.shape[0]}")
         self._store(*fields)
+        self.n, self.mass0 = state.n, state.mass
 
     def _store(self, pos, vel, mass, acc, orig) -> None:
         for buf, x in zip((self.pos, self.vel, self.mass, self.acc,
                            self.orig), (pos, vel, mass, acc, orig)):
+            buf.copy_(x)
+
+    def _near(self, bands) -> torch.Tensor:
+        return forces.apply_near(self.pos, self.pos, self.mass, bands,
+                                 self.cfg)
+
+    def _near_step(self, afm: torch.Tensor, bands) -> None:
+        """One step over the buffers: `afm` + the near band of `bands`."""
+        acc = afm + self._near(bands)
+        st = integ.integrate(ParticleState(self.pos, self.vel, self.mass,
+                                           acc), acc, self.cfg)
+        for buf, x in zip((self.pos, self.vel, self.acc), (st.pos, st.vel,
+                                                            acc)):
             buf.copy_(x)
 
     def snapshot(self) -> ParticleState:
@@ -438,14 +470,13 @@ class _AdaptiveLoop(_PaddedLoop):
     """The adaptive schedule as a host loop, one `step()` per step.
 
     A rebuild happens when the current structure's validity horizon is
-    used up; it reads the build's report once (the one host sync of a
-    rebuild: s_valid, the build's flags and its demand, one copy), and
-    s_valid sets the horizon, the next envelope horizon k_env =
-    clip(2 s_valid, 1, K) and, with cfg.span_age_mult, the hold limit
-    r_eff = clip(span_age_mult * s_valid, 1, R).  Every other decision is
-    taken from host integers, so an inner step (far+mid refresh or not,
-    with or without refresh_moments, exact near, integrate) reads nothing
-    back from the device.
+    used up; it reads s_valid and the build's report in one copy (the one
+    host sync of a rebuild), and s_valid sets the horizon, the next
+    envelope horizon k_env = clip(2 s_valid, 1, K) and, with
+    cfg.span_age_mult, the hold limit r_eff = clip(span_age_mult *
+    s_valid, 1, R).  Every other decision is taken from host integers, so
+    an inner step (far+mid refresh or not, with or without
+    refresh_moments, exact near, integrate) reads nothing back.
 
     A build with any flag set is not swept.  Inside the span
     nbody.caps.grow the loop grows the flagged caps past their demand
@@ -463,38 +494,32 @@ class _AdaptiveLoop(_PaddedLoop):
     rebuild recomputes every source moment from live positions at the
     frozen cut (forces.refresh_farmid).
 
-    The loop owns its buffers: the padded fields (pos, vel, mass, acc,
-    orig), the held far+mid (afm), the envelope horizon k_env and the
-    refresh's prediction time tau (0-d, float64).  The rebuild and each
-    kind of inner step (no refresh, a refresh from the frozen moments, a
-    refresh that recomputes them) read the buffers and write their
-    results back into them, so on CUDA each is one captured graph
-    (utils/graphs.Graphed), replayed at every rebuild and step, unless
-    `graphs` is False or the config has no hand kernels (_graphed); the
-    host keeps the schedule and picks the graph.
-    The rebuild graph's live outputs are the frozen structures
-    (`built`) that the inner-step graphs read.  `load` starts the loop
-    again from another state of the same padded row count, reusing the
-    graphs and the caps.
-
-    Counters that `load` keeps, all on the host: `builds` (rebuilds),
-    `start_rebuilds` (the first rebuild after each load or construction;
-    the others ran out a validity horizon), `builds_redone` (builds with
-    a flag set, thrown away), `cap_growths` (caps grown, one a cap each
-    time it grows), `overflows` (the builds with each BUILD_FLAGS flag
-    set, then with any) and `demand_max` (the largest demand of each
-    DEMANDS kind).  `n_rebuilds` counts the rebuilds since the last load.
+    The loop owns its buffers: the padded fields, the held far+mid (afm),
+    the envelope horizon k_env and the refresh's prediction time tau (0-d,
+    float64).  The rebuild and each kind of inner step (no refresh, a
+    refresh from the frozen moments, a refresh that recomputes them) read
+    and write only buffers, and the inner steps the rebuild's live outputs
+    (`built`), so on CUDA each is one captured graph (utils/graphs.Graphed)
+    unless `graphs` is False or the config has no hand kernels (_graphed).
+    `load` starts again from a state of the same padded row count, reusing
+    the graphs and the caps, and keeps the counters: `builds` (rebuilds),
+    `start_rebuilds` (the first after each load or construction; the
+    others ran out a horizon), `builds_redone` (flagged builds, thrown
+    away), `cap_growths` (one a cap each time it grows), `first_build`
+    (the first build's BuildCounts, from its read) and `tally`, the
+    BuildTally that the rebuild graph adds every build to, redone ones
+    included.  `n_rebuilds` counts the rebuilds since the last load.
 
     The schedule is shared with the multi-device loop
     (parallel/shard.py), which overrides the rebuild (`_build`), the
     moment refresh, the near band and the snapshot, and runs eagerly;
-    its rebuild counts no overflows and grows no cap."""
+    its rebuild counts no build and grows no cap."""
 
     def __init__(self, cfg: SimConfig, state: ParticleState,
                  graphs: bool = True):
-        graphs = _graphed(cfg, graphs)
         self._start(cfg, state.n, state.mass,
-                    *_pad_cycle_state(state, cfg.force_tile), graphs=graphs)
+                    *_pad_cycle_state(state, cfg.force_tile),
+                    graphs=_graphed(cfg, graphs))
         self._make_rebuild()
 
     def _start(self, cfg: SimConfig, n: int, mass0, pos, vel, mass, acc,
@@ -509,19 +534,19 @@ class _AdaptiveLoop(_PaddedLoop):
         self.afm = torch.zeros_like(self.pos)
         self.k_env = torch.empty((), dtype=torch.int64, device=dev)
         self.tau = torch.zeros((), dtype=torch.float64, device=dev)
-        self.overflows = [0] * (len(BUILD_FLAGS) + 1)
-        self.demand_max = [0] * len(DEMANDS)
+        self.tally = BuildTally(dev)
+        self.first_build = None
         self.builds = self.start_rebuilds = 0
         self.builds_redone = self.cap_growths = 0
         self._graphs_on = graphs
         self._make_steps()
-        self._reset(n, mass0)
+        self.n, self.mass0 = n, mass0
+        self._reset()
 
     def _make_steps(self) -> None:
-        """The inner-step graphs, in a memory pool of their own: the
-        loop's graphs replay one at a time on one stream and keep their
-        results in the buffers or in the rebuild's live outputs, so they
-        share one pool."""
+        """The inner-step graphs, in a new memory pool that the rebuild
+        graph shares: the loop's graphs replay one at a time on one stream
+        and keep their results in the buffers or their live outputs."""
         self._pool = (torch.cuda.graph_pool_handle()
                       if self._graphs_on and capturable(self.pos.device)
                       else None)
@@ -535,13 +560,12 @@ class _AdaptiveLoop(_PaddedLoop):
 
     def _graphed(self, fn, name: str, args: tuple = ()) -> Graphed:
         return Graphed(fn, (self.pos, self.vel, self.mass, self.acc,
-                            self.orig, self.afm, self.k_env),
+                            self.orig, self.afm, self.k_env,
+                            self.tally.counts),
                        self.pos.device, name, self._graphs_on, self._pool,
                        args)
 
-    def _reset(self, n: int, mass0) -> None:
-        self.n = n
-        self.mass0 = mass0
+    def _reset(self) -> None:
         # fills, not copies from the host (which would synchronize)
         self.k_env.fill_(self.cfg.rebuild_every)
         self.afm.zero_()
@@ -553,36 +577,35 @@ class _AdaptiveLoop(_PaddedLoop):
         self.n_rebuilds = 0
 
     def load(self, state: ParticleState) -> None:
-        """Start again from `state`, whose padded row count must be the
-        loop's: its fields into the buffers, and k_env, the held far+mid
-        and the host counters as a new loop has them, so that two runs
-        from one state are the same run."""
-        self._load(state)
-        self._reset(state.n, state.mass)
+        """Start again from `state`, with k_env, the held far+mid and the
+        host counters as a new loop has them: one state, one run."""
+        super().load(state)
+        self._reset()
 
     def _rebuild_body(self):
         """The rebuild over the buffers: the fields (and the held far+mid
-        when it spans rebuilds) in the new order; returns (built, report)
-        with report = [s_valid, build_report], int64 [16]."""
+        when it spans rebuilds) in the new order, the build's report added
+        to the tally; returns (built, [s_valid, report])."""
         fields, built, (s_valid, report) = self._rebuild_fn(
             self.pos, self.vel, self.mass, self.acc, self.orig, self.k_env,
             self.afm if self.span else None)
         self._store(*fields[:5])
         if self.span:
             self.afm.copy_(fields[5])
+        self.tally.add(report)
         return built, torch.cat([s_valid.reshape(1), report])
 
     def _build_once(self):
         """One build at the loop's caps: (s_valid, flags, demand), read
-        in one copy, tallied into the counters."""
+        in one copy."""
         self.built, report = self._rebuild_graph()
         with span("nbody.rebuild.horizon_read"):
             r = report.tolist()
         flags, demand = r[1:1 + len(BUILD_FLAGS)], r[1 + len(BUILD_FLAGS):]
-        for i, f in enumerate(flags + [max(flags)]):
-            self.overflows[i] += f
-        self.demand_max = [max(a, b) for a, b in zip(self.demand_max,
-                                                     demand)]
+        if self.first_build is None:
+            self.first_build = BuildCounts(dict(zip(BUILD_FLAGS, flags)),
+                                           max(flags),
+                                           dict(zip(DEMANDS, demand)))
         return r[0], flags, demand
 
     def _grow(self, flags, demand) -> None:
@@ -631,28 +654,17 @@ class _AdaptiveLoop(_PaddedLoop):
         return forces.refresh_farmid(self.pos, self.mass, *rctx, bands,
                                      self.cfg, tgt_pos=p_mid)
 
-    def _near(self) -> torch.Tensor:
-        bands = self.built[2]
-        return forces.apply_near(self.pos, self.pos, self.mass, bands,
-                                 self.cfg)
-
     def _inner(self, refresh: Optional[str]) -> None:
         """One inner step over the buffers.  With `refresh` ("farmid":
         from the frozen moments, "refreshed": every moment recomputed)
         far+mid is evaluated afresh at the positions hold_predict samples
         `tau` ahead; then the near band and the integration."""
-        cfg = self.cfg
         if refresh is not None:
             p_mid = hold_predict_pos(self.pos, self.vel, self.acc, self.tau,
-                                     cfg)
+                                     self.cfg)
             self.afm.copy_(self._farmid_refreshed(p_mid)
                            if refresh == "refreshed" else self._farmid(p_mid))
-        a = self.afm + self._near()
-        st = integ.integrate(ParticleState(pos=self.pos, vel=self.vel,
-                                           mass=self.mass, acc=a), a, cfg)
-        for buf, x in ((self.pos, st.pos), (self.vel, st.vel),
-                       (self.acc, a)):
-            buf.copy_(x)
+        self._near_step(self.afm, self.built[2])
 
     def step(self) -> None:
         cfg = self.cfg
@@ -710,10 +722,9 @@ def make_adaptive_runner(cfg: SimConfig, n_steps: int,
     min(v dt K safety, skin_width_cap * local cell width) and reuses the
     structure for exactly its validity horizon, so the hot core falls
     back to per-step rebuilds while calm epochs coast for ~K steps.
-    With return_stats it returns (state, number of rebuilds).  On CUDA
-    the rebuild and the inner steps run as captured graphs (unless
-    `graphs` is False), which the function keeps for each padded row
-    count it meets and replays in its later calls."""
+    With return_stats it returns (state, number of rebuilds).  Its
+    adaptive loops (_AdaptiveLoop), one a padded row count, keep their
+    graphs (none with `graphs` False) across calls."""
     loops: dict = {}
 
     def run(state: ParticleState):
@@ -779,16 +790,12 @@ class _CycleLoop(_PaddedLoop):
     from the uncapped k-step drift bound, and runs k // r sub-cycles of a
     far+mid evaluation followed by r steps of the exact near band and
     the integration (r = _cycle_hold).  On CUDA each cycle length is one
-    captured graph (utils/graphs.Graphed), replayed for every cycle of
-    that length, unless `graphs` is False or the config has no hand
-    kernels (_graphed); the graphs keep their results in the buffers and
-    share one pool.  `load` starts the loop again from another state of
-    the same padded row count, reusing the graphs; it keeps the counters
-    `builds` (cycles run) and `tally`, a device int64 [16] that every
-    cycle graph adds its build's report to (_count_build: the builds with
-    each flag set, with any, and the largest demand of each kind).  The
-    caps stay as configured: `Simulation.run` reads the tally at each
-    frame's sync and raises on a build that dropped pairs."""
+    captured graph (utils/graphs.Graphed; _graphed), replayed for every
+    cycle of that length; the graphs keep their results in the buffers
+    and share one pool.  `load` (_PaddedLoop.load) reuses the graphs and
+    keeps the counters `builds` (cycles run) and `tally`, the BuildTally
+    that every cycle adds its build to.  The caps stay as configured:
+    `Simulation.run` reads the tally at each frame's sync."""
 
     def __init__(self, cfg: SimConfig, state: ParticleState,
                  graphs: bool = True):
@@ -799,21 +806,14 @@ class _CycleLoop(_PaddedLoop):
         self._pool = (torch.cuda.graph_pool_handle()
                       if self.graphs and capturable(self.pos.device) else None)
         self._cycles: dict = {}         # k -> Graphed
-        self.tally = _new_tally(self.pos.device)
+        self.tally = BuildTally(self.pos.device)
         self.builds = 0
 
-    def load(self, state: ParticleState) -> None:
-        """Start again from `state`, whose padded row count must be the
-        loop's."""
-        self._load(state)
-        self.n, self.mass0 = state.n, state.mass
-
     def _cycle(self, k: int) -> torch.Tensor:
-        """One k-step cycle over the buffers; tallies the build's report
-        and returns its overflow flags (build_flags).  k, and with it
-        the drift bound's horizon, the hold r and the prediction time
-        0.5 (r - 1) dt, is constant for each graph, so baking them in at
-        capture is right."""
+        """One k-step cycle over the buffers; tallies the build and returns
+        its flags (build_flags).  k, and with it the drift bound's horizon,
+        the hold r and the prediction time 0.5 (r - 1) dt, is constant for
+        each graph, so baking them in at capture is right."""
         cfg = self.cfg
         r = _cycle_hold(cfg, k)
         codes_s, perm, _, _ = sort_by_morton(self.pos, cfg)
@@ -821,50 +821,29 @@ class _CycleLoop(_PaddedLoop):
         self._store(*(x[perm] for x in (self.pos, self.vel, self.mass,
                                          self.acc, self.orig)))
         drift = drift_bound(_norms(self.vel), _norms(self.acc), cfg, k)
-        demand = torch.zeros(len(forces.BAND_DEMAND), dtype=torch.int32,
-                             device=self.pos.device)
-        cells, supers, bands, tables = forces.build_bands(
-            self.pos, self.mass, codes_s, cfg, drift=drift, demand=demand)
+        (_, supers, bands, tables), report = _reported_build(
+            self.pos, self.mass, codes_s, cfg, drift)
         tau = 0.5 * (r - 1) * cfg.dt
         for _ in range(k // r):
             afm = forces.apply_farmid(
                 hold_predict_pos(self.pos, self.vel, self.acc, tau, cfg),
                 supers, tables, cfg)
             for _ in range(r):
-                acc = afm + forces.apply_near(self.pos, self.pos, self.mass,
-                                              bands, cfg)
-                st = integ.integrate(ParticleState(pos=self.pos, vel=self.vel,
-                                                   mass=self.mass, acc=acc),
-                                     acc, cfg)
-                for buf, x in ((self.pos, st.pos), (self.vel, st.vel),
-                               (self.acc, acc)):
-                    buf.copy_(x)
-        flags = build_flags(cells, bands)
-        _count_build(self.tally, build_report(flags, cells, demand))
-        return flags
+                self._near_step(afm, bands)
+        self.tally.add(report)
+        return report[:len(BUILD_FLAGS)].bool()
 
     def cycle(self, k: int) -> torch.Tensor:
-        """One cycle of k steps, its graph captured on first use; returns
-        the build's overflow flags, which the next replay of the same
-        graph overwrites."""
+        """One cycle of k steps, its graph captured on first use: the
+        build's flags, which the next replay of that graph overwrites."""
         graph = self._cycles.get(k)
         if graph is None:
             graph = self._cycles[k] = Graphed(
                 self._cycle, (self.pos, self.vel, self.mass, self.acc,
-                              self.orig, self.tally), self.pos.device,
+                              self.orig, self.tally.counts), self.pos.device,
                 f"cycle.{k}", self.graphs, self._pool, (k,))
         self.builds += 1
         return graph()
-
-
-def _run_cycles(loops: dict, cfg: SimConfig, state: ParticleState,
-                n_cycles: int, k: int, graphs: bool = True) -> ParticleState:
-    """n_cycles k-step cycles from `state` on the cycle loop of `loops`
-    (_loop_for): the state after."""
-    loop = _loop_for(loops, _CycleLoop, cfg, state, graphs)
-    for _ in range(n_cycles):
-        loop.cycle(k)
-    return loop.snapshot()
 
 
 def make_cycle_runner(cfg: SimConfig, n_cycles: int, k: int,
@@ -874,13 +853,15 @@ def make_cycle_runner(cfg: SimConfig, n_cycles: int, k: int,
     R = cfg.hold_farmid > 1 dividing k, far+mid is evaluated once per
     R-step sub-cycle at its start positions (per cfg.hold_predict) and
     only the exact near band runs every step; otherwise every step
-    evaluates all three bands.  On CUDA a cycle runs as a captured graph
-    (unless `graphs` is False), which the function keeps for each padded
-    row count it meets and replays in its later calls (_CycleLoop)."""
+    evaluates all three bands.  Its cycle loops (_CycleLoop), one a padded
+    row count, keep their graphs (none with `graphs` False) across calls."""
     loops: dict = {}
 
     def run(state: ParticleState) -> ParticleState:
-        return _run_cycles(loops, cfg, state, n_cycles, k, graphs)
+        loop = _loop_for(loops, _CycleLoop, cfg, state, graphs)
+        for _ in range(n_cycles):
+            loop.cycle(k)
+        return loop.snapshot()
 
     return run
 
@@ -891,37 +872,32 @@ def make_cycle_runner(cfg: SimConfig, n_cycles: int, k: int,
 
 
 class _GraphedStep:
-    """`step_fn(state, cfg)` (step_barnes_hut, step_direct, or an
-    ensemble's step over [E, ...] fields) over buffers of the state's
-    shape: on CUDA, with the hand kernels (_graphed) and unless `graphs`
-    is False, one captured graph (utils/graphs.Graphed, named `name`)
-    that reads nothing back.  The step reads no acceleration.  A call
-    copies the state in and returns copies of the results, which the
-    next replay overwrites in the graph's outputs.  With `tally` the step
-    is step_barnes_hut's tiled path, and each step adds its build's
-    report to the device int64 [16] `tally` (_count_build), counted as
-    `builds`."""
+    """`step_fn(state, cfg)` (step_direct, or an ensemble's step over
+    [E, ...] fields) over buffers of the state's shape, or with `tally`
+    step_barnes_hut's tiled path, each step adding its build to the
+    BuildTally `tally` and counted as `builds`: on CUDA one captured graph
+    (utils/graphs.Graphed, named `name`; _graphed) that reads nothing
+    back.  The step reads no acceleration.  A call copies the state in
+    and returns copies of the results, which the next replay overwrites."""
 
     def __init__(self, cfg: SimConfig, state: ParticleState, step_fn,
                  name: str, graphs: bool = True, tally: bool = False):
         self.cfg = cfg
         self._step_fn = step_fn
         self.pos, self.vel, self.mass = (x.clone() for x in state[:3])
-        self.tally = _new_tally(state.device) if tally else None
+        self.tally = BuildTally(state.device) if tally else None
         self.builds = 0
         self._graph = Graphed(self._body, () if self.tally is None
-                              else (self.tally,), state.device, name,
+                              else (self.tally.counts,), state.device, name,
                               _graphed(cfg, graphs))
 
     def _body(self) -> ParticleState:
-        st = ParticleState(pos=self.pos, vel=self.vel, mass=self.mass,
-                           acc=None)
+        st = ParticleState(self.pos, self.vel, self.mass, None)
         if self.tally is None:
             return self._step_fn(st, self.cfg)
-        stats: dict = {}
-        out = self._step_fn(st, self.cfg, "tiled", stats)
-        _count_build(self.tally, stats["report"])
-        return out
+        acc, report = _bh_acc(self.pos, self.mass, self.cfg, "tiled")
+        self.tally.add(report)
+        return integ.integrate(st, acc, self.cfg)
 
     def __call__(self, state: ParticleState) -> ParticleState:
         with span("nbody.step"):
@@ -941,20 +917,15 @@ class Simulation:
     step) or "direct" (O(N^2)).  `device` defaults to CUDA and raises
     when no GPU is present; pass device="cpu" to run the plain versions
     on the CPU.  `n_rebuilds` counts the adaptive runner's band rebuilds
-    over every `run_scan` call, `n_start_rebuilds` those of them that
-    began a call (the others ran out a validity horizon), and
-    `counters()` reads them with the band builds and overflows of the
-    adaptive loops and the fixed-K cycles; `walk_stats` sums the rope
-    walk's lockstep iterations and host reads over every reference step.
+    over every `run_scan` call, `n_start_rebuilds` those that began a
+    call; `counters()` reads them and the band builds of every path;
+    `walk_stats` sums the rope walk's lockstep iterations and host reads.
 
-    On CUDA the per-step rebuild, the direct step, the adaptive runner
-    and the fixed-K cycles run as captured CUDA graphs
-    (utils/graphs.Graphed), the counterpart of the JAX package's jit
-    caches: the Simulation keeps one step graph for each body count, and
-    one adaptive loop and one cycle loop (a graph for each cycle length)
-    for each padded row count it meets, and replays them in every later
-    call, whatever its length.  The rope-walk oracle (host reads by
-    design) and the plain sweeps (cfg.use_pallas=False) run eagerly."""
+    The Simulation keeps one step graph for each body count, and one
+    adaptive loop and one cycle loop for each padded row count it meets
+    (utils/graphs.Graphed on CUDA, the counterpart of the JAX package's
+    jit caches), and replays them in every later call, whatever its
+    length.  The rope-walk oracle and the plain sweeps run eagerly."""
 
     def __init__(self, cfg: SimConfig, method: str = "barnes_hut",
                  device=None):
@@ -992,11 +963,12 @@ class Simulation:
             step = self._steps[key] = _GraphedStep(
                 self.cfg, state, step_direct if direct else step_barnes_hut,
                 "step", tally=not direct)
-        return step(state)
+        state = step(state)
+        self._check_overflow(lambda: BuildTally.read([step.tally]))
+        return state
 
     def step(self, state: ParticleState) -> ParticleState:
         self._check_device(state)
-        self._check_overflow(state)
         return self._step(state)
 
     def run(self, state: ParticleState, n_steps: int,
@@ -1005,9 +977,8 @@ class Simulation:
         """Advance n_steps through `run_scan`; with a callback, in chunks
         of `callback_every` steps, synchronizing the device before each
         call of `callback(steps_done, state)`.  After each chunk's sync
-        (without a callback, at the end) the per-step rebuild's and the
-        fixed-K cycles' build tallies are read, and a build that dropped
-        pairs raises (_check_builds)."""
+        (without a callback, at the end) a build that dropped pairs raises
+        (_check_builds)."""
         chunk = (callback_every if callback is not None and callback_every
                  else n_steps)
         done = 0
@@ -1031,58 +1002,46 @@ class Simulation:
         then one cycle of the remainder) reuse the bands."""
         with span("nbody.run_scan"):
             self._check_device(state)
-            self._check_overflow(state)
             k = self.cfg.rebuild_every
             if self.method != "barnes_hut" or k <= 1:
                 for _ in range(n_steps):
                     state = self._step(state)
                 return state
             if self.cfg.adaptive_rebuild:
-                state, n_rb = _run_adaptive(self._loops, self.cfg, state,
-                                            n_steps)
-                self.n_rebuilds += n_rb
-                return state
+                loop = _loop_for(self._loops, _AdaptiveLoop, self.cfg, state,
+                                 True)
+                for _ in range(n_steps):
+                    loop.step()
+                self.n_rebuilds += loop.n_rebuilds
+                if loop.first_build is not None:
+                    self._check_overflow(lambda: loop.first_build)
+                return loop.snapshot()
             n_cycles, rem = divmod(n_steps, k)
-            if n_cycles:
-                state = _run_cycles(self._cycles, self.cfg, state, n_cycles,
-                                    k)
-            if rem:
-                state = _run_cycles(self._cycles, self.cfg, state, 1, rem)
+            for count, length in ((n_cycles, k), (int(rem > 0), rem)):
+                if count:
+                    loop = _loop_for(self._cycles, _CycleLoop, self.cfg,
+                                     state, True)
+                    for _ in range(count):
+                        loop.cycle(length)
+                        self._check_overflow(
+                            lambda: BuildTally.read([loop.tally]))
+                    state = loop.snapshot()
             return state
 
     @property
     def n_start_rebuilds(self) -> int:
         return sum(loop.start_rebuilds for loop in self._loops.values())
 
-    def _tallies(self) -> list:
-        """The device tallies (_count_build) of the per-step rebuild and
-        the fixed-K cycles, summed (counts) and maxed (demand), read in
-        one copy: int [16]."""
-        tallies = [x.tally for x in (*self._steps.values(),
-                                      *self._cycles.values())
-                   if x.tally is not None]
-        if not tallies:
-            return [0] * (len(BUILD_FLAGS) + 1 + len(DEMANDS))
-        if len(tallies) == 1:
-            return tallies[0].tolist()
-        t = torch.stack(tallies)
-        n = len(BUILD_FLAGS) + 1
-        return torch.cat([t[:, :n].sum(0), t[:, n:].amax(0)]).tolist()
-
     def _check_builds(self) -> None:
-        """Raise if a per-step or fixed-K cycle build has dropped pairs
-        (a flag of BUILD_FLAGS but the grandchild one set), naming the
-        demanded caps: those paths keep their caps."""
-        if not (self._cycles or any(x.tally is not None
-                                    for x in self._steps.values())):
-            return
-        t = self._tallies()
-        flags = dict(zip(BUILD_FLAGS, t[:len(BUILD_FLAGS)]))
-        dropped = {k: v for k, v in flags.items() if k in _DROPPING and v}
+        """Raise if a per-step or fixed-K cycle build dropped pairs
+        (BuildCounts.dropped), naming the demanded caps: those paths keep
+        their caps."""
+        c = BuildTally.read(x.tally for x in (*self._steps.values(),
+                                              *self._cycles.values()))
+        dropped = c.dropped()
         if dropped:
-            demand = dict(zip(DEMANDS, t[len(BUILD_FLAGS) + 1:]))
             caps = caps_in_force(self.cfg)
-            wanted = {k: v for k, v in demand.items() if v > caps[k]}
+            wanted = {k: v for k, v in c.demand_max.items() if v > caps[k]}
             raise RuntimeError(
                 f"band builds of the per-step rebuild or the fixed-K cycles "
                 f"overflowed their caps and dropped pairs (builds by flag "
@@ -1090,39 +1049,29 @@ class Simulation:
                 "caps in the config")
 
     def counters(self) -> dict:
-        """Counts over every run_scan call: "rebuilds"
-        (n_rebuilds), "start_rebuilds" (n_start_rebuilds), "builds" (the
-        band builds of the adaptive loops, those redone included, and of
-        the fixed-K cycles), "step_builds" (the per-step rebuild's),
-        "overflowed_builds" (builds of all three with any flag of
-        BUILD_FLAGS set) and "overflow_by_flag" (builds with each flag
-        set), "builds_redone" and "cap_growths" (the adaptive loops',
-        _AdaptiveLoop), "caps" (the caps in force, by DEMANDS name: the
-        largest of the adaptive loops' and the config's) and "demand_max"
-        (the largest demand of each kind, of every build).  One host
-        read."""
+        """Counts over every call, one host read: "rebuilds" and
+        "start_rebuilds" (n_rebuilds, n_start_rebuilds), "builds" (the
+        adaptive loops', redone ones included, and the fixed-K cycles'),
+        "step_builds" (the per-step rebuild's), from every path's
+        BuildTally "overflowed_builds", "overflow_by_flag" and
+        "demand_max", the adaptive loops' "builds_redone" and
+        "cap_growths", and "caps" (the largest in force, by DEMANDS)."""
         loops = list(self._loops.values())
-        t = self._tallies()
-        n = len(BUILD_FLAGS) + 1
-        counts, demand = t[:n], t[n:]
-        for loop in loops:
-            counts = [a + b for a, b in zip(counts, loop.overflows)]
-            demand = [max(a, b) for a, b in zip(demand, loop.demand_max)]
-        caps = caps_in_force(self.cfg)
-        for loop in loops:
-            caps = {k: max(v, caps_in_force(loop.cfg)[k])
-                    for k, v in caps.items()}
+        c = BuildTally.read(x.tally for x in (*self._steps.values(),
+                                              *self._cycles.values(), *loops))
+        caps = {k: max(caps_in_force(cfg)[k] for cfg in (self.cfg, *(
+            x.cfg for x in loops))) for k in DEMANDS}
         return {"rebuilds": self.n_rebuilds,
                 "start_rebuilds": self.n_start_rebuilds,
                 "builds": sum(x.builds + x.builds_redone for x in loops)
                 + sum(x.builds for x in self._cycles.values()),
                 "step_builds": sum(x.builds for x in self._steps.values()),
-                "overflowed_builds": counts[-1],
-                "overflow_by_flag": dict(zip(BUILD_FLAGS, counts[:-1])),
+                "overflowed_builds": c.overflowed,
+                "overflow_by_flag": c.by_flag,
                 "builds_redone": sum(x.builds_redone for x in loops),
                 "cap_growths": sum(x.cap_growths for x in loops),
                 "caps": caps,
-                "demand_max": dict(zip(DEMANDS, demand))}
+                "demand_max": c.demand_max}
 
     def make_stepper(self, state: ParticleState) -> Optional[AdaptiveStepper]:
         """A persistent stepper for interactive use, or None when the
@@ -1131,40 +1080,31 @@ class Simulation:
         if (self.method == "barnes_hut" and self.cfg.adaptive_rebuild
                 and self.cfg.rebuild_every > 1):
             self._check_device(state)
-            self._check_overflow(state)
-            return AdaptiveStepper(self.cfg, state)
+            stepper = AdaptiveStepper(self.cfg, state)
+            self._check_overflow(lambda: stepper._loop.first_build)
+            return stepper
         return None
 
-    def _check_overflow(self, state: ParticleState) -> None:
-        """One-time guard on the first step: cell-capacity overflow drops
-        whole cells (their mass is missing from every force of the
-        per-step rebuild and the fixed-K cycles, and the adaptive runner
-        grows the capacity at its first build), so warn loudly;
-        grandchild-cap overflow is graceful and warned for tuning.
-        cfg.check_overflow=False skips it."""
+    def _check_overflow(self, first: Callable[[], BuildCounts]) -> None:
+        """Warn once, after the Simulation's first band build, from its
+        counts `first()` (the adaptive loop's read, or one host read of the
+        per-step or cycle tally that holds it alone): of dropped cells
+        loudly, of a graceful grandchild overflow for tuning."""
         if self._overflow_checked:
             return
         self._overflow_checked = True
         with span("nbody.check_overflow"):
-            cfg = self.cfg
-            cs, perm, lo, size = sort_by_morton(state.pos, cfg)
-            ps, ms, csp = forces.pad_sorted(state.pos[perm],
-                                            state.mass[perm], cs,
-                                            cfg.force_tile)
-            cells = build_source_cells(csp, ps, ms, cfg.force_tile, cfg.g,
-                                       cfg.cell_capacity, lo, size,
-                                       g2_factor=cfg.g2_cap_factor,
-                                       bits=cfg.morton_bits)
-            if bool(cells.overflow):
+            c, cfg = first(), self.cfg
+            if c.by_flag["cells"]:      # its demand: the cut's cell count
                 warnings.warn(
                     f"adaptive-cell capacity overflow: n_cells="
-                    f"{int(cells.n_cells)} > cell_capacity="
+                    f"{c.demand_max['cells']} > cell_capacity="
                     f"{cfg.cell_capacity}; truncated cells' mass is MISSING "
                     "from all forces but the adaptive runner's, which grows "
                     "the capacity — raise cfg.cell_cap_factor (now "
                     f"{cfg.cell_cap_factor})",
                     RuntimeWarning, stacklevel=3)
-            elif bool(cells.overflow_g2):
+            elif c.by_flag["g2"]:
                 warnings.warn(
                     "grandchild-segment cap overflow (graceful): some "
                     "children take exact P2P instead of grandchild monopoles "

@@ -650,9 +650,8 @@ class _ShardedAdaptiveLoop(_AdaptiveLoop):
         return _refresh_farmid_slab(p_mid, self.pos, self.glob.mass_s, rctx,
                                     bands, self.cfg, self.mesh)
 
-    def _near(self) -> torch.Tensor:
-        return _near_sharded(self.pos, self.glob, self.built[2], self.cfg,
-                             self.mesh)
+    def _near(self, bands) -> torch.Tensor:
+        return _near_sharded(self.pos, self.glob, bands, self.cfg, self.mesh)
 
     def snapshot(self) -> ParticleState:
         return _gather_back(self.pos, self.vel, self.acc, self.orig, self.n,

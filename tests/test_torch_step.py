@@ -15,6 +15,7 @@ from nbody_tpu.state import ParticleState as JState
 
 from nbody_tpu_torch.convert import (config_from_dict, state_from_numpy,
                                      state_to_numpy)
+from nbody_tpu_torch.models import simulation as tsim
 from nbody_tpu_torch.models.simulation import Simulation, sort_by_morton
 from nbody_tpu_torch.ops import forces
 
@@ -102,19 +103,48 @@ def test_step_matches_jax_step(case):
     assert float(np.median(_rel(acc_t, ref))) < 0.02
 
 
-def test_first_step_warns_on_cell_overflow():
+# the one-step first call of each path: the per-step rebuild, fixed-K
+# cycles (a one-step remainder cycle) and the adaptive runner
+FIRST_CALLS = {
+    "step": ({}, lambda sim, st: sim.step(st)),
+    "cycles": (dict(rebuild_every=4, adaptive_rebuild=False),
+               lambda sim, st: sim.run_scan(st, 1)),
+    "adaptive": (dict(rebuild_every=4, adaptive_rebuild=True),
+                 lambda sim, st: sim.run_scan(st, 1)),
+}
+
+
+@pytest.mark.parametrize("path", sorted(FIRST_CALLS))
+def test_first_step_warns_on_cell_overflow(monkeypatch, path):
+    """The first build's flags warn, once; the warning needs no sort of
+    its own: one Morton sort a band build (the adaptive runner redoes its
+    overflowed first build at grown caps)."""
     # a uniform cube cut at depth 3 has 512 cells of ~39 bodies, above
     # the 384-cell capacity of factor 1 at force_tile 64
     n = 20_000
     rng = np.random.default_rng(0)
     pos = rng.uniform(-1000, 1000, (n, 3)).astype(np.float32)
     mass = np.ones(n, np.float32)
+    over, call = FIRST_CALLS[path]
     tc = config_from_dict(dataclasses.asdict(
-        JConfig(n=n, force_tile=64, cell_cap_factor=1, use_pallas=False)))
+        JConfig(n=n, force_tile=64, cell_cap_factor=1, use_pallas=False,
+                **over)))
     sim = Simulation(tc, device="cpu")
     st = state_from_numpy(pos, np.zeros_like(pos), mass)
-    with pytest.warns(RuntimeWarning, match="capacity overflow"):
-        sim.step(st)
+    sorts = []
+
+    def counted(*args, **kw):
+        sorts.append(1)
+        return sort_by_morton(*args, **kw)
+
+    monkeypatch.setattr(tsim, "sort_by_morton", counted)
+    with pytest.warns(RuntimeWarning, match=r"capacity overflow: n_cells=\d+ "
+                      r"> cell_capacity=384"):
+        call(sim, st)
+    c = sim.counters()
+    builds = c["builds"] + c["step_builds"]
+    assert len(sorts) == builds == (2 if path == "adaptive" else 1)
+    assert c["overflow_by_flag"]["cells"] == 1
     with warnings.catch_warnings():
-        warnings.simplefilter("error")   # the probe runs once
-        sim.step(st)
+        warnings.simplefilter("error")   # the check runs once
+        call(sim, st)
