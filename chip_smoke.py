@@ -47,8 +47,9 @@ refresh's:
            version on the runner's own skinned bands at the evolved
            state with its time and bound there, near_span's window-lane
            and live pairs, the tile orders' time, the host syncs of a
-           32-step run and of inner steps (at most one per rebuild, none
-           in an inner step), and
+           32-step run that starts again, of one the runner carries on
+           from it and of inner steps (at most one per rebuild, none in
+           an inner step), and
            profiles of one 32-step chunk and of one inner step (taken
            after [graphs]);
            [far ceiling] lines give the far sweep's time at the 1M state,
@@ -177,6 +178,7 @@ from nbody_tpu_torch.config import PRESETS
 from nbody_tpu_torch.models import simulation
 from nbody_tpu_torch.models.simulation import Simulation, sort_by_morton
 from nbody_tpu_torch.init import make_initial_state
+from nbody_tpu_torch.state import ParticleState
 from nbody_tpu_torch.ops import bbox, forces, integrate, panel
 from nbody_tpu_torch.ops.cells import build_source_cells
 from nbody_tpu_torch.ops.cuda import build, classify, forces as kern
@@ -416,8 +418,15 @@ def tile_order_report(label, bands, tables):
                     for k, w in work.items()))
 
 
+def fresh(state):
+    """A copy of `state`: a run_scan call on it starts again with a
+    rebuild at k_env = K, where the runner's own last output, unchanged,
+    would be carried on."""
+    return ParticleState(*(x.clone() for x in state))
+
+
 def skinned_bands(cfg, state):
-    """The runner's first rebuild of a run_scan call at `state`
+    """The runner's first rebuild of a run_scan call that starts at `state`
     (tools.common.first_rebuild, envelopes for rebuild_every steps):
     (pos, mass, cells, ss, bands, tables, s_valid, k_next)."""
     rebuild, args = tool_common.first_rebuild(state, cfg)
@@ -686,8 +695,9 @@ def runner_phase(base, steps, chunk=32):
     if not res["drift"] < DRIFT_LIMIT:
         raise RuntimeError(f"energy drift {res['drift']} >= {DRIFT_LIMIT}")
     # the force the runner computes at the evolved state: one more step
-    # (a rebuild and a fresh far+mid) against a float64 direct sum
-    nxt = sim.run_scan(state, 1)
+    # (a rebuild and a fresh far+mid: a call on a copy starts again)
+    # against a float64 direct sum
+    nxt = sim.run_scan(fresh(state), 1)
     med, worst = direct_check(state, nxt.acc, cfg)
     log(f"[runner] acceleration after the run vs float64 direct sum at 4096 "
         f"bodies: median rel err {med:.3e} (bound 2e-2), max {worst:.3e}")
@@ -695,7 +705,7 @@ def runner_phase(base, steps, chunk=32):
         raise RuntimeError(f"median force error {med} >= 2% after the run")
     # where the outliers come from: the per-step rebuild (no skins) at the
     # same state, and the demand and flags of the runner's first rebuild
-    # of a run_scan call (envelopes sized for K steps)
+    # of a run_scan call that starts again (envelopes sized for K steps)
     med1, worst1 = direct_check(state, sim.step(state).acc, cfg)
     log(f"[runner] per-step rebuild at the evolved state: median rel err "
         f"{med1:.3e}, max {worst1:.3e}")
@@ -781,24 +791,31 @@ def check_runner_launches(launches, steps, rebuilds=None):
 def check_syncs(sim, ic, state, chunk):
     """Host syncs, counted on graphs already captured (a capture
     synchronizes the device): at most one per rebuild over a run_scan
-    chunk from `state` (the drift protocol captured sim's graphs), none
-    in an inner step with a far+mid refresh, and none in an inner
-    refresh_moments refresh (a non-span hold of 1 from the IC, where the
-    horizon is long).  Returns the force-kernel launches a replay of the
-    refresh_moments loop's refresh graph."""
+    chunk that starts again from `state` and over one the runner carries
+    on from that chunk's output (the drift protocol captured sim's
+    graphs), none in an inner step with a far+mid refresh, and none in an
+    inner refresh_moments refresh (a non-span hold of 1 from the IC,
+    where the horizon is long).  Returns the force-kernel launches a
+    replay of the refresh_moments loop's refresh graph."""
     _, n = count_syncs(lambda: torch.ones(1, device=DEVICE).item())
     if n != 1:
         raise RuntimeError(f"sync debug mode counted {n} syncs for one .item()")
-    # a first chunk from `state` grows whatever caps it demands (a growth
-    # captures graphs, which synchronizes); the counted one replays
-    sim.run_scan(state, chunk)
-    rb0 = sim.n_rebuilds
-    _, n = count_syncs(lambda: sim.run_scan(state, chunk))
-    rebuilds = sim.n_rebuilds - rb0
-    log(f"[runner] host syncs over one {chunk}-step run_scan: {n} for "
-        f"{rebuilds} rebuilds")
-    if n > rebuilds:
-        raise RuntimeError(f"{n} host syncs for {rebuilds} rebuilds")
+    # the same two chunks first grow whatever caps they demand (a growth
+    # captures graphs, which synchronizes); the counted ones replay
+    sim.run_scan(sim.run_scan(fresh(state), chunk), chunk)
+    out = fresh(state)
+    for label in ("starting again", "carried on"):
+        rb0, c0 = sim.n_rebuilds, sim.counters()["carried_calls"]
+        out, n = count_syncs(lambda: sim.run_scan(out, chunk))
+        rebuilds = sim.n_rebuilds - rb0
+        carried = sim.counters()["carried_calls"] - c0
+        log(f"[runner] host syncs over one {chunk}-step run_scan "
+            f"{label}: {n} for {rebuilds} rebuilds")
+        if n > rebuilds:
+            raise RuntimeError(f"{n} host syncs for {rebuilds} rebuilds")
+        if carried != (label == "carried on"):
+            raise RuntimeError(f"a run_scan call {label} counted {carried} "
+                               "carried calls")
     rm = sim.cfg.replace(refresh_moments=True, farmid_span_rebuilds=False,
                          hold_farmid=1)
     # (config, state, steps before the counted one): the first step after

@@ -295,9 +295,9 @@ def sustained(sim: Simulation, state, frames: int) -> Dict:
     each from `state`: {"rates": steps/s of each, "refreshes": far+mid
     refreshes a call, "rebuilds": band builds a call (the adaptive
     runner counts its own), "launches": kernel launches over the timed
-    calls}.  Every call does the same work (run_scan starts a fresh
-    runner); a call whose refresh or rebuild count differs from the
-    first's raises."""
+    calls}.  Every call does the same work (each is on `state`, which the
+    adaptive runner did not hand out, so each starts again); a call whose
+    refresh or rebuild count differs from the first's raises."""
     _sync(sim.run_scan(state, frames))
     launch.reset()
     rates, counts = [], set()

@@ -38,6 +38,7 @@ The per-step rebuild and the fixed-K cycles keep their caps;
 from __future__ import annotations
 
 import warnings
+import weakref
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -502,13 +503,16 @@ class _AdaptiveLoop(_PaddedLoop):
     (`built`), so on CUDA each is one captured graph (utils/graphs.Graphed)
     unless `graphs` is False or the config has no hand kernels (_graphed).
     `load` starts again from a state of the same padded row count, reusing
-    the graphs and the caps, and keeps the counters: `builds` (rebuilds),
-    `start_rebuilds` (the first after each load or construction; the
-    others ran out a horizon), `builds_redone` (flagged builds, thrown
-    away), `cap_growths` (one a cap each time it grows), `first_build`
-    (the first build's BuildCounts, from its read) and `tally`, the
-    BuildTally that the rebuild graph adds every build to, redone ones
-    included.  `n_rebuilds` counts the rebuilds since the last load.
+    the graphs and the caps; `carry` goes on from where the last step
+    left the loop, which is right only for the state `snapshot` last
+    returned, unchanged (`carries`).  Both keep the counters: `builds`
+    (rebuilds), `start_rebuilds` (the first after each load or
+    construction; the others ran out a horizon), `carried_calls` (the
+    carries), `builds_redone` (flagged builds, thrown away),
+    `cap_growths` (one a cap each time it grows), `first_build` (the
+    first build's BuildCounts, from its read) and `tally`, the BuildTally
+    that the rebuild graph adds every build to, redone ones included.
+    `n_rebuilds` counts the rebuilds since the last load or carry.
 
     The schedule is shared with the multi-device loop
     (parallel/shard.py), which overrides the rebuild (`_build`), the
@@ -536,7 +540,7 @@ class _AdaptiveLoop(_PaddedLoop):
         self.tau = torch.zeros((), dtype=torch.float64, device=dev)
         self.tally = BuildTally(dev)
         self.first_build = None
-        self.builds = self.start_rebuilds = 0
+        self.builds = self.start_rebuilds = self.carried_calls = 0
         self.builds_redone = self.cap_growths = 0
         self._graphs_on = graphs
         self._make_steps()
@@ -575,12 +579,37 @@ class _AdaptiveLoop(_PaddedLoop):
         self.j = 0             # steps since the last rebuild
         self.r_eff = self.r
         self.n_rebuilds = 0
+        self._fresh = True     # the next rebuild is a start rebuild
+        self._handed = None    # the last snapshot's tensors (weak), versions
 
     def load(self, state: ParticleState) -> None:
         """Start again from `state`, with k_env, the held far+mid and the
         host counters as a new loop has them: one state, one run."""
         super().load(state)
         self._reset()
+
+    def snapshot(self) -> ParticleState:
+        out = super().snapshot()
+        self._handed = tuple((weakref.ref(x), x._version) for x in out)
+        return out
+
+    def carries(self, state: ParticleState) -> bool:
+        """Whether `state` is what `snapshot` last returned, unchanged:
+        the same pos, vel, mass and acc tensors, none written in place
+        since (their version counters), and the loop neither stepped nor
+        loaded since.  The tensors are held weakly: a state the caller
+        let go is never carried."""
+        return self._handed is not None and all(
+            ref() is x and x._version == version
+            for (ref, version), x in zip(self._handed, state))
+
+    def carry(self) -> None:
+        """Go on from where the last step left the buffers, k_env, the
+        held far+mid and its age, the built structure and its countdown:
+        the steps that follow are those one longer run would take.  Only
+        n_rebuilds starts again, at 0."""
+        self.carried_calls += 1
+        self.n_rebuilds = 0
 
     def _rebuild_body(self):
         """The rebuild over the buffers: the fields (and the held far+mid
@@ -637,7 +666,8 @@ class _AdaptiveLoop(_PaddedLoop):
         with span("nbody.rebuild"):
             s_valid = self._build()
         self.left, self.j = s_valid, 0
-        self.start_rebuilds += self.n_rebuilds == 0
+        self.start_rebuilds += self._fresh
+        self._fresh = False
         self.n_rebuilds += 1
         self.builds += 1
         if self.span and self.cfg.span_age_mult > 0:
@@ -668,6 +698,7 @@ class _AdaptiveLoop(_PaddedLoop):
 
     def step(self) -> None:
         cfg = self.cfg
+        self._handed = None
         if self.left <= 0:
             self.rebuild()
         if self.span:
@@ -690,14 +721,18 @@ class _AdaptiveLoop(_PaddedLoop):
 def _loop_for(loops: dict, kind, cfg: SimConfig, state: ParticleState,
               graphs: bool):
     """The loop of class `kind` in `loops` for the state's padded row
-    count and device, loaded with `state`; made on first use, its graphs
-    captured as it meets them."""
+    count and device, made on first use (its graphs captured as it meets
+    them).  An adaptive loop handed its own last output unchanged
+    (_AdaptiveLoop.carries) goes on from it; any other loop is loaded
+    with `state`."""
     rows = -(-state.n // cfg.force_tile) * cfg.force_tile
     key = (cfg, rows, state.device)
     with span("nbody.loop.load"):
         loop = loops.get(key)
         if loop is None:
             loop = loops[key] = kind(cfg, state, graphs)
+        elif isinstance(loop, _AdaptiveLoop) and loop.carries(state):
+            loop.carry()
         else:
             loop.load(state)
     return loop
@@ -705,9 +740,9 @@ def _loop_for(loops: dict, kind, cfg: SimConfig, state: ParticleState,
 
 def _run_adaptive(loops: dict, cfg: SimConfig, state: ParticleState,
                   n_steps: int, graphs: bool = True):
-    """n_steps of the adaptive schedule from `state`, starting with a
-    rebuild, on the adaptive loop of `loops` (_loop_for): (the state
-    after, the number of rebuilds)."""
+    """n_steps of the adaptive schedule from `state` on the adaptive
+    loop of `loops` (_loop_for), starting with a rebuild unless the loop
+    carries the state: (the state after, the number of rebuilds)."""
     loop = _loop_for(loops, _AdaptiveLoop, cfg, state, graphs)
     for _ in range(n_steps):
         loop.step()
@@ -717,12 +752,15 @@ def _run_adaptive(loops: dict, cfg: SimConfig, state: ParticleState,
 def make_adaptive_runner(cfg: SimConfig, n_steps: int,
                          return_stats: bool = False, graphs: bool = True):
     """A function advancing a state by n_steps with adaptive,
-    step-granular band rebuilds (cfg.adaptive_rebuild), starting with a
-    rebuild.  Each rebuild gives every particle the envelope
-    min(v dt K safety, skin_width_cap * local cell width) and reuses the
-    structure for exactly its validity horizon, so the hot core falls
-    back to per-step rebuilds while calm epochs coast for ~K steps.
-    With return_stats it returns (state, number of rebuilds).  Its
+    step-granular band rebuilds (cfg.adaptive_rebuild).  Each rebuild
+    gives every particle the envelope min(v dt K safety, skin_width_cap *
+    local cell width) and reuses the structure for exactly its validity
+    horizon, so the hot core falls back to per-step rebuilds while calm
+    epochs coast for ~K steps.  A call on the function's own last
+    output, unchanged, goes on with the schedule where the last call
+    left it, so a chain of calls equals one call of all their steps bit
+    for bit; a call on any other state starts with a rebuild at k_env =
+    K.  With return_stats it returns (state, the call's rebuilds).  Its
     adaptive loops (_AdaptiveLoop), one a padded row count, keep their
     graphs (none with `graphs` False) across calls."""
     loops: dict = {}
@@ -739,9 +777,11 @@ class AdaptiveStepper:
     interactive use: positions in Morton order, the frozen band
     structures, the validity countdown and the held far+mid stay on the
     device across `advance` calls, so a viewer stepping a few steps per
-    frame rebuilds only when the physics demands it (`run_scan` starts
-    every call with a rebuild).  The first rebuild happens here.  The
-    stepper's loop keeps its captured graphs (on CUDA) across calls."""
+    frame rebuilds only when the physics demands it, with no snapshot
+    between calls (`run_scan` carries its schedule across calls too, but
+    hands back a state in the original order every call).  The first
+    rebuild happens here.  The stepper's loop keeps its captured graphs
+    (on CUDA) across calls."""
 
     def __init__(self, cfg: SimConfig, state: ParticleState):
         self.cfg = cfg
@@ -918,7 +958,8 @@ class Simulation:
     when no GPU is present; pass device="cpu" to run the plain versions
     on the CPU.  `n_rebuilds` counts the adaptive runner's band rebuilds
     over every `run_scan` call, `n_start_rebuilds` those that began a
-    call; `counters()` reads them and the band builds of every path;
+    call the runner did not carry; `counters()` reads them, the carried
+    calls and the band builds of every path;
     `walk_stats` sums the rope walk's lockstep iterations and host reads.
 
     The Simulation keeps one step graph for each body count, and one
@@ -999,7 +1040,16 @@ class Simulation:
         """Advance n_steps.  The direct method and rebuild_every <= 1 step
         with a full rebuild each; with rebuild_every = K > 1 the adaptive
         runner (cfg.adaptive_rebuild) or fixed-K cycles (K-step cycles,
-        then one cycle of the remainder) reuse the bands."""
+        then one cycle of the remainder) reuse the bands.
+
+        The adaptive runner given the state its last call returned, with
+        no tensor of it replaced or written in place, goes on where that
+        call stopped (_AdaptiveLoop.carries): the same structure, envelope
+        horizon k_env and held far+mid, so a chain of calls on their own
+        outputs equals one call of all their steps bit for bit, however
+        the steps are split.  Any other state (a copy, one changed in
+        place, another Simulation's, or an older output) starts with a
+        rebuild at k_env = K."""
         with span("nbody.run_scan"):
             self._check_device(state)
             k = self.cfg.rebuild_every
@@ -1050,7 +1100,9 @@ class Simulation:
 
     def counters(self) -> dict:
         """Counts over every call, one host read: "rebuilds" and
-        "start_rebuilds" (n_rebuilds, n_start_rebuilds), "builds" (the
+        "start_rebuilds" (n_rebuilds, n_start_rebuilds), "carried_calls"
+        (the adaptive runner's calls that went on from their state without
+        a start rebuild), "builds" (the
         adaptive loops', redone ones included, and the fixed-K cycles'),
         "step_builds" (the per-step rebuild's), from every path's
         BuildTally "overflowed_builds", "overflow_by_flag" and
@@ -1063,6 +1115,7 @@ class Simulation:
             x.cfg for x in loops))) for k in DEMANDS}
         return {"rebuilds": self.n_rebuilds,
                 "start_rebuilds": self.n_start_rebuilds,
+                "carried_calls": sum(x.carried_calls for x in loops),
                 "builds": sum(x.builds + x.builds_redone for x in loops)
                 + sum(x.builds for x in self._cycles.values()),
                 "step_builds": sum(x.builds for x in self._steps.values()),

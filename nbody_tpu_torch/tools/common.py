@@ -164,10 +164,10 @@ def sorted_padded(state: ParticleState, cfg: SimConfig):
 
 def first_rebuild(state: ParticleState, cfg: SimConfig):
     """(rebuild, args): the adaptive runner's rebuild and its inputs at
-    `state` with k_env = K (the first rebuild of every run_scan call,
-    envelopes for cfg.rebuild_every steps).  rebuild(*args) returns
-    ((pos, vel, mass, acc, orig, afm), (cells, ss, bands, tables, rctx),
-    (s_valid, report)) in the new (sorted, tile-padded) order, as
+    `state` with k_env = K (the first rebuild of a run_scan call that
+    starts again, envelopes for cfg.rebuild_every steps).  rebuild(*args)
+    returns ((pos, vel, mass, acc, orig, afm), (cells, ss, bands, tables,
+    rctx), (s_valid, report)) in the new (sorted, tile-padded) order, as
     models.simulation._adaptive_rebuild_fn says."""
     args = _pad_cycle_state(state, cfg.force_tile) + (
         torch.full((), cfg.rebuild_every, device=state.device),)

@@ -9,8 +9,10 @@ hold_farmid=R, skin_width_cap=alpha, check_overflow=False) (force_tile
 256, super-supers on), n = --n (the JAX tool fixes 1M).  For each state
 make_adaptive_runner(cfg, steps, return_stats=True) runs once untimed,
 and the timed call starts from that call's output, as the JAX tool's
-does; its time is the host clock around the call and one device
-synchronisation.  --hot-state (default chip_scratch/hot1m.npz, written
+does.  The port's runner carries its schedule on into that call (the
+JAX tool's starts again at k_env = K), so the timed call's rebuilds are
+those of steps [steps, 2 steps) of one long run.  Its time is the host
+clock around the call and one device synchronisation.  --hot-state (default chip_scratch/hot1m.npz, written
 by prof_mkhot, when that file exists) stands for the JAX tool's cached
 /tmp/stale_state_1000000_512.npz; its cfg takes the state's n.
 """

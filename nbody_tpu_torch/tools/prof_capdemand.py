@@ -12,7 +12,8 @@ hold_farmid=4, check_overflow=False): unlike v5_bench it has force_tile
 (g2_cap_factor at its structural maximum, 8: an overflowed grandchild
 cap forces children into the near band and would show as near demand);
 the skins are adaptive_drift's envelopes for rebuild_every steps, which
-is what the runner's first rebuild of every run_scan call gives.
+is what the runner's first rebuild of a run_scan call that starts
+again (on a state it did not hand out) gives.
 """
 
 from __future__ import annotations

@@ -11,11 +11,13 @@ hold_farmid=8, check_overflow=False) plus the overrides (force_tile 256,
 super-supers on: not v5_bench).
 
 One run_scan call of `steps` steps comes first, as the JAX tool's
-"compile + settle k_env" call.  It compiles nothing here, and it settles
-nothing either: every run_scan call starts its envelope horizon k_env
-at K again, in both packages.  Then `reps` calls are timed on the host
-clock, with one device synchronisation at the end; the runner's own
-read of s_valid at each rebuild is the only host read inside.
+"compile + settle k_env" call.  It compiles nothing here (the graphs are
+captured in it), and it settles k_env as its name says: each timed call
+is on the last call's output, which the port's runner carries on
+(Simulation.run_scan), where the JAX package's starts every call at
+k_env = K again.  Then `reps` calls are timed on the host clock, with
+one device synchronisation at the end; the runner's own read of s_valid
+at each rebuild is the only host read inside.
 """
 
 from __future__ import annotations

@@ -93,8 +93,9 @@ class SimViewer:
         self.camera = OrbitCamera(cfg)
         # the adaptive runner's persistent stepper keeps the band
         # structures across frames, so a frame rebuilds only when the
-        # physics asks (run_scan starts every call with a rebuild); None
-        # for configurations without reusable bands
+        # physics asks, and hands the renderer its Morton-ordered
+        # buffers with no scatter back a frame; None for configurations
+        # without reusable bands
         self._stepper = sim.make_stepper(state)
         self.step_count = 0
         self.frames = 0

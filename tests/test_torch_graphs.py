@@ -70,6 +70,11 @@ def _same(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def _copy(state):
+    """A copy of `state`, which an adaptive runner never carries."""
+    return type(state)(*(x.clone() for x in state))
+
+
 # --- the prediction time as a device scalar ----------------------------------
 
 
@@ -112,14 +117,16 @@ def two_calls(request):
 
 def test_run_scan_reuses_its_loop_and_matches_fresh_and_jax(two_calls):
     """Two run_scan calls on one Simulation (the second on the first's
-    loop, its buffers reloaded) equal two calls on fresh Simulations bit
-    for bit, and nbody_tpu's runner within TRAJ; a third call from the
-    first call's state repeats the second."""
+    loop, its buffers reloaded from a copy of the first's output, so that
+    it starts again as nbody_tpu's runner does) equal two calls on fresh
+    Simulations bit for bit, and nbody_tpu's runner within TRAJ; a third
+    call from the first call's state (no longer the loop's last output)
+    repeats the second."""
     tc, ic = two_calls["tc"], two_calls["ic"]
     sim = tsim.Simulation(tc, device="cpu")
     got = [sim.run_scan(ic, STEPS[0])]
     loop = next(iter(sim._loops.values()))
-    got.append(sim.run_scan(got[0], STEPS[1]))
+    got.append(sim.run_scan(_copy(got[0]), STEPS[1]))
     assert list(sim._loops.values()) == [loop]
     fresh = [tsim.Simulation(tc, device="cpu").run_scan(ic, STEPS[0])]
     fresh.append(tsim.Simulation(tc, device="cpu").run_scan(fresh[0],

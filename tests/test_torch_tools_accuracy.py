@@ -13,6 +13,7 @@ cause is a MAC tie.
 
 import dataclasses
 import functools
+import types
 
 import numpy as np
 import jax
@@ -38,6 +39,7 @@ from nbody_tpu_torch.tools import (
     prof_capdemand, prof_crash1m, prof_fbias, prof_fbias_cpu, prof_kilostep,
     prof_latestate, prof_mkhot, prof_nearwin, prof_skinerr, prof_stale,
     prof_tailtargets)
+from nbody_tpu_torch.utils import metrics as tmetrics
 
 torch.set_num_threads(2)
 
@@ -190,11 +192,18 @@ def test_kilostep_config_is_v5_bench_but_check_overflow():
     assert got["check_overflow"] is False
 
 
+def _copy(state):
+    return type(state)(*(x.clone() for x in state))
+
+
 @pytest.fixture(scope="module")
 def gate_runs():
     """prof_kilostep.gate and prof_mkhot.make_hot at N, 4 steps in
-    2-step run_scan calls, and the JAX drift protocol on one Simulation
-    (its 2-step scan compiled once)."""
+    2-step run_scan calls (the port's runner carries each call on from
+    the last one's output), one 4-step port call, the port's drift
+    protocol with each call handed a copy (so that it starts again, as
+    nbody_tpu's run_scan starts every call), and the JAX drift protocol
+    on one Simulation (its 2-step scan compiled once)."""
     tc = prof_kilostep.make_config(16, 8, N).replace(force_tile=128,
                                                      use_pallas=False)
     ts, js = _states()
@@ -204,21 +213,36 @@ def gate_runs():
     got = prof_kilostep.gate(ts, tc, 4, chunk=2, log_every=2,
                              log=lines.append)
     hot = prof_mkhot.make_hot(ts, tc, 4, chunk=2, log=None)
+    one = tsim.Simulation(tc, device="cpu").run_scan(ts, 4)
+    sim = tsim.Simulation(tc, device="cpu")
+    restarting = types.SimpleNamespace(
+        cfg=tc, run_scan=lambda st, k: sim.run_scan(_copy(st), k))
+    again = tmetrics.drift_protocol(restarting, ts, n_steps=4, chunk=2)
     jhot = jsim_.run_scan(jsim_.run_scan(js, 2), 2)
-    return dict(want=want, got=got, lines=lines, hot=hot, jhot=jhot, tc=tc)
+    return dict(want=want, got=got, lines=lines, hot=hot, jhot=jhot, tc=tc,
+                one=one, again=again)
 
 
 def test_kilostep_gate_matches_jax_drift_protocol(gate_runs):
-    """E0 within 1e-5 and E1 within 1e-4 relative (float32 sums of the
-    softened energy in two orders), the final state within TRAJ."""
+    """The gate's chunks, carried on, end at the state of one 4-step call
+    bit for bit.  Started again each chunk, as nbody_tpu's are, the
+    protocol matches nbody_tpu's: E0 within 1e-5 and E1 within 1e-4
+    relative (float32 sums of the softened energy in two orders), the
+    final state within TRAJ."""
     got, want = gate_runs["got"], gate_runs["want"]
-    assert got["drift_steps"] == want["drift_steps"] == 4
+    again = gate_runs["again"]
+    assert got["drift_steps"] == again["drift_steps"] == want[
+        "drift_steps"] == 4
+    assert all(torch.equal(a, b) for a, b in zip(got["state"],
+                                                 gate_runs["one"]))
     np.testing.assert_allclose(got["e0"], want["e0"], rtol=1e-5)
-    np.testing.assert_allclose(got["e1"], want["e1"], rtol=1e-4)
+    np.testing.assert_allclose(again["e1"], want["e1"], rtol=1e-4)
+    assert got["e1"] == pytest.approx(float(tmetrics.total_energy(
+        gate_runs["one"], gate_runs["tc"])), rel=1e-6)
     assert got["sim"].n_rebuilds >= 1
-    assert got["ke"] == pytest.approx(float(jmetrics.kinetic_energy(
-        want["state"])), rel=1e-5)
-    np.testing.assert_allclose(got["state"].pos.numpy(),
+    assert got["ke"] == pytest.approx(float(tmetrics.kinetic_energy(
+        gate_runs["one"])), rel=1e-6)
+    np.testing.assert_allclose(again["state"].pos.numpy(),
                                np.asarray(want["state"].pos), **TRAJ)
     lines = gate_runs["lines"]
     assert lines[0].startswith("E0 = ") and len(lines) == 3
@@ -231,7 +255,8 @@ def test_mkhot_state_matches_and_loads_in_jax(gate_runs, tmp_path):
         gate_runs["got"]["sim"].n_rebuilds
     for a, b in zip(hot["state"], gate_runs["got"]["state"]):
         assert torch.equal(a, b)            # the gate's run, bit for bit
-    np.testing.assert_allclose(hot["state"].pos.numpy(),
+    # calls started again on copies, as nbody_tpu's are
+    np.testing.assert_allclose(gate_runs["again"]["state"].pos.numpy(),
                                np.asarray(jhot.pos), **TRAJ)
     path = str(tmp_path / "sub" / "hot.npz")
     prof_mkhot.save_hot(path, hot["state"], 4)

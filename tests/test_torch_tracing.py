@@ -3,7 +3,8 @@
 graph (torch_graph_standin.replayed) and a CPU torch.profiler session:
 the nbody.* spans nest as the runners, loops and graphs call one another,
 one nbody.rebuild span for each counted rebuild and one inner-step graph
-span for each step, the start rebuilds count the run_scan calls, the
+span for each step, the start rebuilds count the run_scan calls that
+the runner did not carry (the carried calls counted beside them), the
 overflow counts of a build with a planted small near_cap equal
 bh_diagnostics' flags graphed and eager, no record_function is entered
 without a session, trajectories are the same traced and untraced, and
@@ -150,17 +151,25 @@ def test_a_rebuild_span_per_rebuild_and_an_inner_span_per_step(replayed,
 
 
 def test_start_rebuilds_count_the_run_scan_calls(replayed):
-    """Each run_scan call begins with a start rebuild; the rest of
-    n_rebuilds ran out a validity horizon; counters() reads both, and an
-    AdaptiveStepper's loop counts its constructor's rebuild as a start."""
+    """A run_scan call on a state the runner did not hand out begins with
+    a start rebuild; a call on the runner's own last output is carried
+    and begins with none; the rest of n_rebuilds ran out a validity
+    horizon; counters() reads the rebuilds, the start rebuilds and the
+    carried calls, and an AdaptiveStepper's loop counts its constructor's
+    rebuild as a start."""
     cfg, ic = _setup("adaptive")
     sim = tsim.Simulation(cfg, device="cpu")
     st = ic
-    for i, n in enumerate((13, 3, 13), 1):
+    for n in (13, 3, 13):
         st = sim.run_scan(st, n)
+        assert sim.n_start_rebuilds == 1
+    assert sim.counters()["carried_calls"] == 2
+    for i in (2, 3):                    # from the IC: no carry
+        sim.run_scan(ic, 3)
         assert sim.n_start_rebuilds == i
     c = sim.counters()
     assert c["rebuilds"] == sim.n_rebuilds > c["start_rebuilds"] == 3
+    assert c["carried_calls"] == 2
     assert c["builds"] == c["rebuilds"]
     stepper = sim.make_stepper(ic)
     stepper.advance(13)
@@ -251,8 +260,9 @@ def test_trajectories_are_the_same_traced_and_untraced(replayed, tmp_path):
 
 def test_cli_run_prints_the_counters(capsys):
     """`run` prints the counters beside the kernel launches: the
-    rebuilds split into start (one a run_scan call, here one a logged
-    chunk) and horizon rebuilds, and the builds' overflow counts."""
+    rebuilds split into start (step 0's run_scan call alone: each logged
+    chunk goes on from the last one's state) and horizon rebuilds, the
+    carried calls, and the builds' overflow counts."""
     assert cli.main(["run", "--preset", "v5", "--n", "3000", "--steps", "9",
                      "--log-every", "4", "--device", "cpu"]) == 0
     err = capsys.readouterr().err
@@ -260,8 +270,9 @@ def test_cli_run_prints_the_counters(capsys):
     assert len(line) == 1
     c = json.loads(line[0][len("counters: "):])
     # step 0 is a run_scan call of one step on the adaptive runner; then
-    # run_scan calls of 4 and 4 steps
-    assert c["start_rebuilds"] == 3
+    # run_scan calls of 4 and 4 steps, each on the last call's output
+    assert c["start_rebuilds"] == 1
+    assert c["carried_calls"] == 2
     assert c["rebuilds"] == c["start_rebuilds"] + c["horizon_rebuilds"]
     assert c["builds"] == c["rebuilds"]
     assert c["step_builds"] == 0
