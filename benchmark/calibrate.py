@@ -48,10 +48,10 @@ def main(argv=None) -> int:
     out = open(args.out, "a") if args.out else None
     for seed in seeds:
         t0 = time.perf_counter()
-        start = harness.start_state(cell, cfg, seed, dev)
-        sim.run(start, tr["segment_steps"], lambda *_: None,
+        starts = harness.start_states(cell, cfg, seed, dev)
+        sim.run(starts[0], tr["segment_steps"], lambda *_: None,
                 callback_every=tr["frame_steps"])
-        win = harness.run_window(sim, start, cell, seed, args.seconds)
+        win = harness.run_window(sim, starts, cell, seed, args.seconds)
         torch.cuda.synchronize(dev)
         rec = {"seed": seed, "workload": args.workload,
                "frames": len(win.ends)}
@@ -67,7 +67,7 @@ def main(argv=None) -> int:
         if out:
             out.write(line + "\n")
             out.flush()
-        del win, start
+        del win, starts
     if out:
         out.close()
     return 0

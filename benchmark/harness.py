@@ -5,20 +5,24 @@ and with tracing one profiled span read by the per-layer readers.
 
 The window drives the command line's batch path,
 ``Simulation.run(state, S, callback, callback_every=F)``: a segment of S
-steps from the cell's start state in frames of F steps, each frame a
-``run_scan`` call ending in a device sync.  When a segment ends the next
-starts again from the same start state, so every version of the program
-does the same work a segment.  The window ends at the first frame
-boundary past the run's seconds (after one whole segment at least).  The
-same Simulation serves the warm-up and every segment, so each graph is
-captured in set-up and only replayed in the window.
+steps from a start state in frames of F steps, each frame a ``run_scan``
+call ending in a device sync.  The traffic's ``start_states`` M (default
+1) are made from the run's seed: state 0 from the seed itself, the others
+from seeds drawn from it; segment j starts again from state j mod M, so
+every version of the program does the same work over the same M
+realisations, and a run's rate is their mean, not one seed's.  The
+window ends at the first frame boundary past the run's seconds (after
+one whole segment at least).  The same Simulation serves the warm-up
+(from state 0) and every segment, so each graph is captured in set-up
+and only replayed in the window; states 1 to M-1 are made after set-up
+is timed and before the window, outside both clocks.
 
 A cell's pieces, each found by the name that BENCHMARK.json gives:
   configs/<config>.json   the SimConfig fields as run, with source,
                           assumed, reduced, precision and deployment
-  traffic/<mix>.json      the start state's generator and parameters,
+  traffic/<mix>.json      the start states' generator and parameters,
                           segment_steps, frame_steps, trace_steps,
-                          check_frames, check_bodies
+                          check_frames, check_bodies, start_states
   ics/<generator>.py      make(n, seed, g, device, **params)
   limits/<cell>.json      each number `correct` compares, with its limit
   layer_metrics/<m>.py    read(ctx): one per-layer metric, or None
@@ -27,6 +31,7 @@ A cell's pieces, each found by the name that BENCHMARK.json gives:
 from __future__ import annotations
 
 import importlib.util
+import itertools
 import json
 import os
 import random
@@ -119,7 +124,7 @@ def physics(cfg) -> check.Physics:
 
 
 def start_state(cell: Cell, cfg, seed: int, device: torch.device):
-    """The cell's start state from the seed, on `device`."""
+    """One start state of the cell from `seed`, on `device`."""
     from nbody_tpu_torch.state import ParticleState
 
     tr = cell.traffic
@@ -130,15 +135,40 @@ def start_state(cell: Cell, cfg, seed: int, device: torch.device):
     return ParticleState.create(pos, vel, mass, device=device)
 
 
+def state_seeds(traffic: dict, seed: int) -> List[int]:
+    """The seeds of a run's traffic["start_states"] start states: the
+    run's own seed, then distinct 31-bit seeds drawn from
+    random.Random(seed)."""
+    rng = random.Random(seed)
+    seeds = [seed]
+    while len(seeds) < traffic.get("start_states", 1):
+        s = rng.getrandbits(31)
+        if s not in seeds:
+            seeds.append(s)
+    return seeds
+
+
+def start_states(cell: Cell, cfg, seed: int, device: torch.device,
+                 first=None) -> list:
+    """The run's start states, on `device`: state 0 from the seed (or
+    `first`, that state made already), then one from each further seed of
+    state_seeds."""
+    seeds = state_seeds(cell.traffic, seed)
+    if first is None:
+        first = start_state(cell, cfg, seed, device)
+    return [first] + [start_state(cell, cfg, s, device) for s in seeds[1:]]
+
+
 class _WindowClosed(Exception):
     pass
 
 
 class Window:
     """The frames of the measured window: their end times, the states the
-    check reads, and the rebuilds the runner counted."""
+    check reads, and the rebuilds the runner counted, in all and for each
+    start state over its whole segments."""
 
-    def __init__(self, seed: int, check_frames: int):
+    def __init__(self, seed: int, check_frames: int, states: int):
         self.rng = random.Random(seed)
         self.keep = max(1, check_frames)
         self.ends: List[float] = []
@@ -148,10 +178,12 @@ class Window:
         self.steps = 0
         self.t0 = 0.0                 # the window's start
         self.rebuilds = 0
+        # per start state: [whole segments, their rebuilds]
+        self.by_state = [[0, 0] for _ in range(states)]
 
     def frame(self, i: int, start, end) -> None:
-        """Keep the first frame (it starts from the cell's start state)
-        and a reservoir sample of the others, drawn from the seed."""
+        """Keep the first frame (it starts from start state 0) and a
+        reservoir sample of the others, drawn from the seed."""
         if i == 0:
             self.checked.append((i, start, end))
             return
@@ -164,11 +196,15 @@ class Window:
                 self.checked[1 + r] = (i, start, end)
 
 
-def run_window(sim, start, cell: Cell, seed: int, seconds: float) -> Window:
+def run_window(sim, starts: list, cell: Cell, seed: int,
+               seconds: float) -> Window:
+    """Segments from starts[j mod len(starts)], j = 0, 1, ..., until the
+    window closes."""
     tr = cell.traffic
     seg, fr = tr["segment_steps"], tr["frame_steps"]
-    win = Window(seed, tr["check_frames"])
-    prev = [start]
+    win = Window(seed, tr["check_frames"], len(starts))
+    prev = [starts[0]]
+    at = [0, 0]        # the segment's start state, the rebuilds before it
 
     def on_frame(done: int, state) -> None:
         t = time.perf_counter()
@@ -177,8 +213,12 @@ def run_window(sim, start, cell: Cell, seed: int, seconds: float) -> Window:
         win.steps += fr
         win.frame(i, prev[0], state)
         prev[0] = state
-        if done == seg and win.first_segment_end is None:
-            win.first_segment_end = state
+        if done == seg:
+            if win.first_segment_end is None:
+                win.first_segment_end = state
+            tally = win.by_state[at[0]]
+            tally[0] += 1
+            tally[1] += sim.n_rebuilds - at[1]
         if t - t0 >= seconds and win.first_segment_end is not None:
             raise _WindowClosed
 
@@ -186,9 +226,10 @@ def run_window(sim, start, cell: Cell, seed: int, seconds: float) -> Window:
     t0 = time.perf_counter()
     win.t0 = t0
     try:
-        while True:
-            prev[0] = start
-            sim.run(start, seg, on_frame, callback_every=fr)
+        for j in itertools.count():
+            at[:] = j % len(starts), sim.n_rebuilds
+            prev[0] = starts[at[0]]
+            sim.run(prev[0], seg, on_frame, callback_every=fr)
     except _WindowClosed:
         pass
     win.rebuilds = sim.n_rebuilds - rb0
@@ -356,8 +397,13 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         raise ImportError(f"forbidden modules loaded in set-up: {bad}")
     setup_s = time.perf_counter() - t_start
     log(f"set-up {setup_s:.3f} s")
+    # the other start states (the same shapes, so the same graphs),
+    # outside set-up and the window: the traffic, not the program's set-up
+    starts = start_states(cell, cfg, seed, device, first=start)
+    if on_cuda:
+        torch.cuda.synchronize(device)
 
-    win = run_window(sim, start, cell, seed, seconds)
+    win = run_window(sim, starts, cell, seed, seconds)
     if on_cuda:
         torch.cuda.synchronize(device)
     bad = forbidden_modules()
@@ -367,6 +413,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     log(f"window: {fs['frames']} frames, {win.steps} steps, "
         f"{win.rebuilds} rebuilds; steps/s {fs['steps_per_s']:.6g}; frame "
         f"ms p50 {fs['frame_ms_p50']:.6g} p95 {fs['frame_ms_p95']:.6g}")
+    log(f"start states: {len(starts)}; rebuilds a whole segment by state: "
+        + " ".join(f"{r / n:.4g}" if n else "-" for n, r in win.by_state))
     dev_info = {"platform": "gpu" if on_cuda else "cpu",
                 "kind": (torch.cuda.get_device_name(device) if on_cuda
                          else "cpu"),
@@ -403,7 +451,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         breakdown = tspan.breakdown()
         log(f"traced span: {tspan.steps} steps, busy {tspan.busy_s:.6g} s "
             f"of {tspan.window_s:.6g} s")
-    del sim
+    del sim, start, starts
     if on_cuda:
         torch.cuda.empty_cache()
 

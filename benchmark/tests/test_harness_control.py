@@ -46,8 +46,8 @@ def test_control_fails(root, cell):
     c = harness.load_cell(cell, root)
     cfg = harness.sim_config(c, CPU)
     sim = Simulation(cfg, device=CPU)
-    start = harness.start_state(c, cfg, 23, CPU)
-    win = harness.run_window(sim, start, c, 23, 0.1)
+    starts = harness.start_states(c, cfg, 23, CPU)
+    win = harness.run_window(sim, starts, c, 23, 0.1)
     ctl = harness.check_window(win, c, cfg, 23, CPU, control=True)
     ok, checks = check.judge(ctl["numbers"], c.limits)
     assert not ok, checks

@@ -6,8 +6,10 @@ the launch that ends them do not move with the offset (the labels by
 the host's range at the gap's start do), the clock check reads the
 offset, and every existing per-layer reader reads the same trace the
 same with the program's spans in it as without; and run_spans reads
-the counters around the harness's window, one start rebuild a frame."""
+the counters around the harness's window, one start rebuild a segment."""
 
+import itertools
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -18,6 +20,7 @@ import torch
 from benchmark import harness, program_spans, run_spans
 from benchmark import trace_reader as tracing
 from benchmark.tests import harness_copy
+from nbody_tpu_torch.models.simulation import Simulation
 
 READERS = Path(harness.__file__).with_name("layer_metrics")
 STEPS = 2
@@ -167,20 +170,43 @@ def test_existing_readers_read_the_same_with_program_spans(reader):
     assert with_spans.breakdown() == without.breakdown()
 
 
-def test_run_spans_reads_a_start_rebuild_a_frame(tmp_path):
-    """The harness's window (harness_copy.small, on the CPU) under
-    run_spans.watched: one start rebuild for each frame, a run_scan
-    call; the harness's own functions are back afterwards."""
+def test_run_spans_reads_a_start_rebuild_a_segment(tmp_path, monkeypatch):
+    """The harness's window (harness_copy.small, on the CPU, the disk
+    cell's start states in turn) under run_spans.watched: one start
+    rebuild for each segment, from its own start state, however many
+    frames (run_scan calls) the segment has; the harness's own functions
+    are back afterwards.  The harness's clock is a counter, so the
+    window is 8 frames, 4 segments."""
     root = harness_copy.small(tmp_path)
+    ticks = itertools.count()
+    monkeypatch.setattr(harness, "time", SimpleNamespace(
+        perf_counter=lambda: float(next(ticks)), sleep=time.sleep))
+    loads = []
+    run = Simulation.run
+
+    def counted_run(self, state, *args, **kw):
+        loads.append(state)
+        return run(self, state, *args, **kw)
+
     window, span, read = (harness.run_window, harness.traced_span,
                           tracing.read)
     with run_spans.watched(harness, tracing) as seen:
-        out = harness.run("v5_bench_1m.disk", 2**31 + 3, 0.1, False,
+        monkeypatch.setattr(Simulation, "run", counted_run)
+        out = harness.run("v5_bench_1m.disk", 2**31 + 3, 8, False,
                           device=torch.device("cpu"), root=root)
     assert (harness.run_window, harness.traced_span, tracing.read) == (
         window, span, read)
+    tr = harness.load_cell("v5_bench_1m.disk", root).traffic
+    assert tr["start_states"] > 4
+    segments = out["attempted"] * tr["frame_steps"] // tr["segment_steps"]
+    assert out["attempted"] == 8 and segments == 4
+    # the warm-up segment from state 0, then one segment a state
+    assert len(loads) == 1 + segments and loads[0] is loads[1]
+    assert len({id(x) for x in loads[1:]}) == segments
     before, after = seen["window"]
     starts = after["start_rebuilds"] - before["start_rebuilds"]
-    assert starts == out["attempted"] >= 2
+    assert starts == segments < out["attempted"]
+    assert after["carried_calls"] - before["carried_calls"] == (
+        out["attempted"] - segments)
     assert program_spans.start_rebuild_pct(before, after) == pytest.approx(
         100.0 * starts / (after["rebuilds"] - before["rebuilds"]))
